@@ -1,13 +1,18 @@
 """Command-line entry point, flag for flag the JAX package's CLI (reference:
 codes/run.py §parse_args ≈L27-80, §main ≈L180-360).
 
-This port evaluates: ``--do_valid``, ``--do_test`` and ``--evaluate_train``
-on a checkpoint (``-init``) or a random init. Flags of work not ported yet
-are parsed, so a saved ``config.json`` loads, and refused with
-``NotImplementedError`` naming the ROADMAP item. It runs on CUDA unless
-``--platform cpu`` is given.
+This port trains (``--do_train``: the single-device loop with the host
+sampler, periodic saves, log windows and validation) and evaluates
+(``--do_valid``, ``--do_test``, ``--evaluate_train``) from a random init or
+a checkpoint (``-init``). Flags of work not ported yet are parsed, so a
+saved ``config.json`` loads, and refused with ``NotImplementedError``
+naming the ROADMAP item. It runs on CUDA unless ``--platform cpu`` is given.
 
 Usage:
+  python -m knowledgegraphembedding_torch.cli --do_train --do_valid --do_test \
+      --data_path data/FB15k-237 --model RotatE -de -n 256 -b 1024 -d 1000 \
+      -g 9.0 -a 1.0 -adv -lr 0.00005 --max_steps 100000 --test_batch_size 16 \
+      -save models/RotatE_FB15k-237_0
   python -m knowledgegraphembedding_torch.cli --do_test \
       -init models/RotatE_FB15k-237_0 --test_batch_size 16
 """
@@ -19,6 +24,7 @@ import json
 import logging
 import os
 import sys
+import time
 import zlib
 
 import numpy as np
@@ -127,9 +133,10 @@ def resolve_device(config: RunConfig) -> torch.device:
 
 def refuse_unported(config: RunConfig) -> None:
     """Flags whose work is not ported yet fail loudly, naming the ROADMAP item."""
+    from .eval import DENSE_MODELS
+
+    evaluates = config.do_valid or config.do_test or config.evaluate_train
     refused = (
-        (config.do_train, "--do_train: training is not ported yet "
-                          "(ROADMAP Queue 1, items 5-8)"),
         (config.countries, "--countries: AUC-PR evaluation is not ported yet "
                            "(ROADMAP Queue 1, item 10)"),
         (config.num_shards > 1 or config.model_shards > 1,
@@ -139,6 +146,22 @@ def refuse_unported(config: RunConfig) -> None:
                            "(ROADMAP Queue 1, item 14)"),
         (config.precision == "bf16", "--precision bf16 is not ported yet "
                                      "(ROADMAP Queue 1, item 11)"),
+        (config.negative_sharing == "batch", "--negative_sharing batch: shared "
+                                             "negatives are not ported yet "
+                                             "(ROADMAP Queue 1, item 11)"),
+        (config.scoring == "dense", "--scoring dense: dense matmul scoring is "
+                                    "not ported yet (ROADMAP Queue 1, item 9)"),
+        (config.model in DENSE_MODELS and evaluates,
+         f"{config.model} ranking needs dense matmul scoring, not ported yet "
+         "(ROADMAP Queue 1, item 9)"),
+        (config.do_train and config.steps_per_dispatch > 1,
+         "--steps_per_dispatch > 1: fused multi-step blocks are not ported "
+         "yet (ROADMAP Queue 1, item 13)"),
+        (config.do_train and config.sampler_backend == "device",
+         "--sampler_backend device: the device-resident sampler is not "
+         "ported yet (ROADMAP Queue 1, item 12)"),
+        (config.profile_dir is not None, "--profile_dir: profiler traces are "
+                                         "not ported yet (ROADMAP Queue 1, item 15)"),
     )
     for cond, msg in refused:
         if cond:
@@ -146,13 +169,14 @@ def refuse_unported(config: RunConfig) -> None:
 
 
 def main(argv=None) -> dict:
-    """The evaluation flow of codes/run.py §main; returns the metrics dicts
+    """The flow of codes/run.py §main; returns the final metrics dicts
     keyed by split."""
     from . import checkpoint as ckpt_mod
     from . import eval as eval_mod
     from .data import registry
     from .data.filterset import FilterSets
     from .models import kge
+    from .train import Trainer
     from .utils.logging import log_metrics, set_logger
 
     config = parse_args(argv)
@@ -207,8 +231,20 @@ def main(argv=None) -> dict:
     for name, shape in shapes.items():
         logging.info("Parameter %s: %s, require_grad = True", name, shape)
 
+    trainer = None
     step = 0
-    if config.init_checkpoint:
+    if config.do_train:
+        warm_up = config.warm_up_steps if config.warm_up_steps else config.max_steps // 2
+        gen = torch.Generator(device=device).manual_seed(config.seed)
+        trainer = Trainer(spec, config.train_spec(), kge.init_params(spec, gen, device=device),
+                          lr=config.learning_rate, warm_up_steps=warm_up)
+        if config.init_checkpoint:
+            logging.info("Loading checkpoint %s...", config.init_checkpoint)
+            ckpt_mod.restore_trainer(trainer, config.init_checkpoint)
+        else:
+            logging.info("Randomly Initializing %s Model...", config.model)
+        params, step = trainer.params, trainer.step
+    elif config.init_checkpoint:
         logging.info("Loading checkpoint %s...", config.init_checkpoint)
         ckpt = ckpt_mod.load_checkpoint(config.init_checkpoint, device)
         params, step = ckpt.params, ckpt.step
@@ -226,7 +262,7 @@ def main(argv=None) -> dict:
     if config.negative_adversarial_sampling:
         logging.info("adversarial_temperature = %f", config.adversarial_temperature)
 
-    def evaluate(triples):
+    def evaluate(params, triples):
         return eval_mod.test_step(
             params, spec, triples, filters,
             test_batch_size=config.test_batch_size,
@@ -237,20 +273,83 @@ def main(argv=None) -> dict:
             device_filter={"auto": None, "host": False, "device": True}[config.eval_filter],
         )
 
+    if trainer is not None:
+        logging.info("learning_rate = %f", trainer.current_learning_rate)
+        _train(trainer, config, ds, device, evaluate, ckpt_mod, log_metrics)
+        params, step = trainer.params, trainer.step
+
     final_metrics = {}
     if config.do_valid:
         logging.info("Evaluating on Valid Dataset...")
-        final_metrics["valid"] = evaluate(ds.valid)
+        final_metrics["valid"] = evaluate(params, ds.valid)
         log_metrics("Valid", step, final_metrics["valid"])
     if config.do_test:
         logging.info("Evaluating on Test Dataset...")
-        final_metrics["test"] = evaluate(ds.test)
+        final_metrics["test"] = evaluate(params, ds.test)
         log_metrics("Test", step, final_metrics["test"])
     if config.evaluate_train:
         logging.info("Evaluating on Training Dataset...")
-        final_metrics["train"] = evaluate(ds.train)
+        final_metrics["train"] = evaluate(params, ds.train)
         log_metrics("Test", step, final_metrics["train"])
     return final_metrics
+
+
+def _train(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod, log_metrics) -> None:
+    """The train loop of codes/run.py §main ≈L280-340 with the host sampler:
+    events fire on ``(step + 1) % N`` (save, then log, then validation), and
+    a final save follows. Per-step logs are summed on the device; each log
+    window reads them to the host once."""
+    from . import native as native_mod
+    from .sampler import build_train_iterator
+
+    backend = config.sampler_backend
+    if backend in ("auto", "native") and native_mod.available():
+        native_mod.set_threads(config.cpu_num)
+        logging.info("native sampler: enabled (%d OpenMP threads)",
+                     native_mod.openmp_threads())
+    if backend == "auto":
+        backend = "native" if native_mod.available() else "numpy"
+    logging.info("sampler backend: %s", backend)
+    it = build_train_iterator(
+        ds.train, ds.nentity, ds.nrelation, config.batch_size,
+        config.negative_sample_size, seed=config.seed,
+        prefetch_depth=config.prefetch_depth, backend=backend,
+        # on CUDA the prefetch thread uploads batch i+1 under step i
+        device=device if device.type == "cuda" else None)
+
+    def to_device(x):
+        return x if isinstance(x, torch.Tensor) else torch.from_numpy(x).to(device)
+
+    log_keys: list = []
+    log_acc = None
+    t_last = time.time()
+    n_since = 0
+    try:
+        for step in range(trainer.step, config.max_steps):
+            pos, neg, w, mode = next(it)
+            logs = trainer.one_step((to_device(pos), to_device(neg), to_device(w), mode))
+            if log_acc is None:
+                log_keys = sorted(logs)
+                log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
+            log_acc = log_acc + torch.stack([logs[k] for k in log_keys])
+            n_since += 1
+
+            if (step + 1) % config.save_checkpoint_steps == 0:
+                ckpt_mod.save_model(trainer, config, config.save_path)
+            if (step + 1) % config.log_steps == 0:
+                sums = log_acc.cpu().numpy()  # the one device sync per window
+                metrics = {k: float(v) / n_since for k, v in zip(log_keys, sums)}
+                metrics["triples_per_sec"] = n_since * config.batch_size / (time.time() - t_last)
+                log_metrics("Training average", step, metrics)
+                log_acc = torch.zeros_like(log_acc)
+                t_last = time.time()
+                n_since = 0
+            if config.do_valid and (step + 1) % config.valid_steps == 0:
+                logging.info("Evaluating on Valid Dataset...")
+                log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
+    finally:
+        it.close()
+    ckpt_mod.save_model(trainer, config, config.save_path)
 
 
 if __name__ == "__main__":

@@ -73,6 +73,27 @@ class ModelSpec:
         return self.model_name == "pRotatE"
 
 
+@dataclasses.dataclass(frozen=True)
+class TrainSpec:
+    """Training hyperparameters, field for field the JAX package's
+    ``TrainSpec`` (codes/run.py §parse_args defaults). The learning rate and
+    the step are not here: they change during a run (the one-shot decay,
+    codes/run.py §main ≈L300).
+
+    ``scoring`` and ``precision`` are accepted as the JAX package names
+    them; this port trains through the row gather in f32 only (``auto``
+    means ``gather`` here), and ``cli`` refuses ``dense`` and ``bf16``."""
+
+    negative_sample_size: int = 128
+    batch_size: int = 1024
+    negative_adversarial_sampling: bool = False
+    adversarial_temperature: float = 1.0
+    uni_weight: bool = False
+    regularization: float = 0.0
+    scoring: str = "auto"
+    precision: str = "f32"
+
+
 @dataclasses.dataclass
 class RunConfig:
     """The CLI surface, field for field the JAX package's ``RunConfig``.
@@ -145,4 +166,16 @@ class RunConfig:
             gamma=self.gamma,
             double_entity_embedding=self.double_entity_embedding,
             double_relation_embedding=self.double_relation_embedding,
+        )
+
+    def train_spec(self) -> TrainSpec:
+        return TrainSpec(
+            negative_sample_size=self.negative_sample_size,
+            batch_size=self.batch_size,
+            negative_adversarial_sampling=self.negative_adversarial_sampling,
+            adversarial_temperature=self.adversarial_temperature,
+            uni_weight=self.uni_weight,
+            regularization=self.regularization,
+            scoring=self.scoring,
+            precision=self.precision,
         )

@@ -15,6 +15,7 @@ on YAGO3-10.  Here both become vectorized numpy CSR structures:
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Dict, Tuple
 
 import numpy as np
 
@@ -146,4 +147,32 @@ class FilterSets:
                 mask[i, true] = True
                 mask[i, t] = False
         return mask
+
+
+def count_frequency(triples: np.ndarray, start: int = 4) -> Dict[Tuple[int, int], int]:
+    """Word2vec-style co-occurrence counts with start=4 smoothing
+    (codes/dataloader.py §count_frequency ≈L72-90): counts for (h, r) and
+    (t, -r-1) pooled into one dict."""
+    count: Dict[Tuple[int, int], int] = {}
+    for h, r, t in triples:
+        k1 = (int(h), int(r))
+        k2 = (int(t), -int(r) - 1)
+        count[k1] = count.get(k1, start) + 1
+        count[k2] = count.get(k2, start) + 1
+    return count
+
+
+def subsampling_weights(triples: np.ndarray, nrelation: int, start: int = 4) -> np.ndarray:
+    """Per-triple ``sqrt(1 / (count[(h,r)] + count[(t,-r-1)]))``
+    (codes/dataloader.py §TrainDataset.__getitem__ ≈L36-40), f32, for the
+    whole train split in one vectorized pass."""
+    h = triples[:, 0].astype(np.int64)
+    r = triples[:, 1].astype(np.int64)
+    t = triples[:, 2].astype(np.int64)
+    # (h, r) and (t, -r-1) encoded into disjoint int64 key spaces
+    keys = np.concatenate([h * nrelation + r, -(t * nrelation + r) - 1])
+    _, inv, counts = np.unique(keys, return_inverse=True, return_counts=True)
+    freq = counts[inv] + start  # each key starts at `start`, +1 per occurrence
+    n = len(triples)
+    return np.sqrt(1.0 / (freq[:n] + freq[n:])).astype(np.float32)
 

@@ -6,8 +6,8 @@ codes/model.py §test_step ≈L332-390, codes/dataloader.py §TestDataset
 which equals the reference's argsort rank without materializing or sorting a
 ``[B, E]`` score row. Two rankers compute it:
 
-  - ``ops.rank_kernel.Ranker``: the fused CUDA kernel for RotatE and TransE
-    (the default on CUDA);
+  - ``ops.rank_kernel.Ranker``: the fused CUDA kernel for RotatE, TransE
+    and pRotatE (the default on CUDA);
   - ``ranks_batch``: the plain chunked path in PyTorch ops, which scores the
     true entity in the batch layout as the JAX package's ``ranks_batch``.
 
@@ -187,6 +187,7 @@ def metrics_from_ranks(ranks) -> List[Dict[str, float]]:
     return out
 
 
+@torch.no_grad()
 def split_ranks(
     params: kge.Params,
     spec: ModelSpec,
@@ -200,7 +201,8 @@ def split_ranks(
     use_kernel: Optional[bool] = None,
     device_filter: Optional[bool] = None,
 ) -> np.ndarray:
-    """Filtered ranks of every triple of a split: i64[len(modes), n].
+    """Filtered ranks of every triple of a split: i64[len(modes), n]. Runs
+    without autograd, so params that require grad (training's) build no graph.
 
     ``use_kernel``: None ranks through the CUDA kernel when the params are
     on CUDA; False forces the plain chunked path. ``device_filter``: None

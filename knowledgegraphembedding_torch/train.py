@@ -1,0 +1,113 @@
+"""The training step and the trainer that carries its state.
+
+Counterpart of ``knowledgegraphembedding_tpu/train.py`` (reference:
+codes/model.py §train_step ≈L267-330, codes/run.py §main ≈L280-340). A step
+is forward (row gathers and scores), the loss, autograd's backward, which
+gives the dense gradients of the gathers as the reference's index_select
+does, and dense Adam in place. The learning rate is a runtime value, and the
+one-shot decay (÷10 at warm_up_steps, a fresh Adam, warm_up×3) happens in
+``Trainer.one_step``. Logs stay on the device; nothing in a step reads a
+device value on the host.
+
+Only the row-gather scoring of the JAX package is ported: its dense matmul
+scoring (ROADMAP Queue 1, item 9), bf16 (item 11) and shared negatives
+(item 11) are not.
+"""
+
+from __future__ import annotations
+
+import logging
+from typing import Dict, Mapping, Tuple
+
+import torch
+
+from . import optim
+from .config import ModelSpec, TrainSpec
+from .models import kge, scorers
+from .ops import loss as loss_ops
+
+
+def loss_and_logs(params: kge.Params, spec: ModelSpec, tspec: TrainSpec,
+                  pos: torch.Tensor, neg: torch.Tensor, weight: torch.Tensor,
+                  mode: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss of one batch: pos [B, 3], neg [B, n], weight [B]."""
+    negative_score = kge.forward(params, spec, (pos, neg), mode)
+    positive_score = kge.forward(params, spec, pos, scorers.SINGLE)
+    loss, logs = loss_ops.kge_loss(positive_score, negative_score, weight, tspec)
+    if tspec.regularization != 0.0:
+        reg = loss_ops.l3_regularization(params, tspec.regularization)
+        loss = loss + reg
+        logs["regularization"] = reg
+        logs["loss"] = loss  # the reference logs the regularized total
+    return loss, logs
+
+
+def train_step(params: kge.Params, opt_state: optim.AdamState, pos, neg, weight,
+               lr: torch.Tensor, *, spec: ModelSpec, tspec: TrainSpec,
+               mode: str) -> Dict[str, torch.Tensor]:
+    """Loss, gradients and one Adam update of ``params`` and ``opt_state``
+    in place; returns the detached logs. ``params`` are leaf tensors that
+    require grad."""
+    loss, logs = loss_and_logs(params, spec, tspec, pos, neg, weight, mode)
+    names = list(params)
+    grads = torch.autograd.grad(loss, [params[k] for k in names])
+    optim.apply_update(params, dict(zip(names, grads)), opt_state, lr)
+    return {k: v.detach() for k, v in logs.items()}
+
+
+def trainable(params: Mapping[str, torch.Tensor]) -> kge.Params:
+    """Copies of ``params`` as leaf tensors that require grad: the trainer
+    owns and updates its own tables, and the caller's stay as they were."""
+    return {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+
+
+class Trainer:
+    """Step counter, learning-rate schedule with the Adam reset, and the
+    params and optimizer state it updates (the loop state of codes/run.py
+    §main)."""
+
+    def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
+                 warm_up_steps: int, init_step: int = 0):
+        if tspec.scoring == "dense" or tspec.precision != "f32":
+            raise NotImplementedError(
+                "only gather scoring in f32 is ported (ROADMAP Queue 1, items 9 and 11)")
+        self.spec = spec
+        self.tspec = tspec
+        self.params = trainable(params)
+        self.opt_state = optim.init_state(self.params)
+        self.current_learning_rate = lr
+        self.warm_up_steps = warm_up_steps
+        self.step = init_step
+
+    @classmethod
+    def from_jax_state(cls, spec: ModelSpec, tspec: TrainSpec, params, opt_state,
+                       step: int, lr: float, warm_up_steps: int, device) -> "Trainer":
+        """A trainer seeded from the JAX package's trainer state as numpy:
+        ``params`` and ``opt_state`` (anything with the ``count``, ``m`` and
+        ``v`` of a JAX ``AdamState``) as the JAX ``Trainer`` holds them, with
+        its step, learning rate and warm-up."""
+        trainer = cls(spec, tspec, kge.params_from_numpy(params, device), lr,
+                      warm_up_steps, init_step=step)
+        trainer.opt_state = optim.state_from_numpy(opt_state.count, opt_state.m,
+                                                   opt_state.v, device)
+        return trainer
+
+    def one_step(self, batch) -> Dict[str, torch.Tensor]:
+        pos, neg, weight, mode = batch
+        step_idx = self.step
+        # lr in the params' dtype, as the JAX trainer passes it
+        lr = torch.tensor(self.current_learning_rate,
+                          dtype=self.params["entity_embedding"].dtype)
+        logs = train_step(self.params, self.opt_state, pos, neg, weight, lr,
+                          spec=self.spec, tspec=self.tspec, mode=mode)
+        self.step = step_idx + 1
+        # codes/run.py ≈L300: checked after the step, so step == warm_up_steps
+        # still trains at the old rate; the next one sees lr/10, a fresh Adam
+        # and warm_up_steps*3
+        if step_idx >= self.warm_up_steps:
+            self.current_learning_rate = self.current_learning_rate / 10.0
+            logging.info("Change learning_rate to %f at step %d",
+                         self.current_learning_rate, step_idx)
+            self.opt_state = optim.init_state(self.params)
+            self.warm_up_steps = self.warm_up_steps * 3
+        return logs

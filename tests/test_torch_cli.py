@@ -1,11 +1,15 @@
 """The port's CLI against the JAX package's: a checkpoint trained by the JAX
 CLI (the tiny RotatE run of the verify recipe) is evaluated by both CLIs with
-``--do_test -init`` and must give the same Test metrics; flags of work not
-ported yet are refused; the platform flag never falls back to the CPU."""
+``--do_test -init`` and must give the same Test metrics; both CLIs train the
+same step-0 checkpoint on the same sampler stream with ``--do_train
+--do_valid --do_test`` and must log the same loss windows and Test metrics;
+flags of work not ported yet are refused; the platform flag never falls back
+to the CPU."""
 
 import dataclasses
 import json
 import os
+import re
 
 import numpy as np
 import pytest
@@ -14,6 +18,7 @@ import torch
 from knowledgegraphembedding_torch import checkpoint as t_ckpt
 from knowledgegraphembedding_torch import cli as t_cli
 from knowledgegraphembedding_torch.config import RunConfig as TRunConfig
+from knowledgegraphembedding_torch.data import registry as t_registry
 from knowledgegraphembedding_torch.models import kge as t_kge
 from knowledgegraphembedding_tpu import checkpoint as j_ckpt
 from knowledgegraphembedding_tpu import cli as j_cli
@@ -60,7 +65,12 @@ def test_do_valid_and_evaluate_train_match_jax(jax_run):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--do_train", "-save", "s"], "items 5-8"),
+    (["--do_train", "-save", "s", "--steps_per_dispatch", "2"], "item 13"),
+    (["--do_train", "-save", "s", "--sampler_backend", "device"], "item 12"),
+    (["--do_train", "-save", "s", "--negative_sharing", "batch"], "item 11"),
+    (["--do_train", "-save", "s", "--scoring", "dense"], "item 9"),
+    (["--do_train", "-save", "s", "--profile_dir", "p"], "item 15"),
+    (["--do_test", "--model", "DistMult"], "item 9"),
     (["--do_test", "--countries"], "item 10"),
     (["--do_test", "--num_shards", "2"], "item 14"),
     (["--do_test", "--model_shards", "2"], "item 14"),
@@ -96,7 +106,7 @@ def test_validation_errors_match_jax():
 
 
 @pytest.mark.parametrize("argv", [
-    ["--do_train", "--data_path", "x", "-save", "s"],
+    ["--do_train", "--data_path", "x", "-save", "s", "--sampler_backend", "device"],
     ["--do_test", "-init", "ck", "--model", "RotatE", "-de", "-d", "1000", "-g", "9.0",
      "--test_batch_size", "16", "--use_pallas", "--eval_filter", "device", "--seed", "3"],
 ])
@@ -142,3 +152,60 @@ def test_jax_checkpoint_loads_in_port(jax_run):
         np.testing.assert_array_equal(ck.params[k].numpy(), np.asarray(v))
         np.testing.assert_array_equal(ck.adam_m[k], np.asarray(state.m[k]))
         np.testing.assert_array_equal(ck.adam_v[k], np.asarray(state.v[k]))
+
+
+TRAIN_RUNS = {
+    # model flags, sampler backend: the native stream is bit-identical too
+    "RotatE": (["-de", "-d", "8", "-g", "4.0"], "auto"),
+    "pRotatE": (["-d", "8", "-g", "4.0"], "numpy"),
+}
+
+
+def _windows(save_dir):
+    with open(os.path.join(save_dir, "train.log")) as f:
+        return [float(x) for x in re.findall(
+            r"Training average loss at step \d+: ([0-9.]+)", f.read())]
+
+
+@pytest.mark.parametrize("model", TRAIN_RUNS)
+def test_do_train_matches_jax_cli(jax_run, tmp_path, model):
+    """The tiny verify-recipe run through both CLIs, from one step-0
+    checkpoint (the two packages draw random inits differently): loss windows
+    agree to 1e-4 (f32 op-order noise over 60 steps), Valid and Test metrics
+    to eval granularity (a few rank flips among 2 x 64 ranks; measured equal
+    on the CPU), and the port's own ``-init`` rerun reproduces its Test
+    metrics exactly."""
+    data_dir = jax_run[0]
+    flags, backend = TRAIN_RUNS[model]
+    init = str(tmp_path / "init")
+    cfg = TRunConfig(model=model, double_entity_embedding="-de" in flags, hidden_dim=8,
+                     gamma=4.0, data_path=data_dir, learning_rate=0.01)
+    tds = t_registry.load(data_dir)
+    cfg.nentity, cfg.nrelation = tds.nentity, tds.nrelation
+    params = t_kge.init_params(cfg.model_spec(), torch.Generator().manual_seed(3), device="cpu")
+    t_ckpt.save_initial_checkpoint(params, cfg, init, warm_up_steps=30)
+    argv = ["--do_train", "--do_valid", "--do_test", "-init", init, "-n", "8", "-b", "32",
+            "-adv", "-lr", "0.01", "--max_steps", "60", "--log_steps", "20",
+            "--valid_steps", "30", "--save_checkpoint_steps", "30", "--test_batch_size", "4",
+            "--sampler_backend", backend]
+    j_save, t_save = str(tmp_path / "jax"), str(tmp_path / "port")
+    want = j_cli.main(argv + ["-save", j_save])
+    got = t_cli.main(argv + ["-save", t_save, "--platform", "cpu"])
+
+    assert len(_windows(t_save)) == 3
+    np.testing.assert_allclose(_windows(t_save), _windows(j_save), rtol=0, atol=1e-4)
+    for split in ("valid", "test"):
+        for k in want[split]:
+            assert abs(got[split][k] - want[split][k]) <= (
+                0.05 * want[split][k] if k == "MR" else 1 / 32), (split, k)
+    assert {"config.json", "checkpoint.npz", "entity_embedding.npy",
+            "relation_embedding.npy", "train.log"} <= set(os.listdir(t_save))
+    with open(os.path.join(t_save, "train.log")) as f:
+        log = f.read()
+    assert "Change learning_rate to 0.001000 at step 30" in log
+    assert re.search(r"Training average triples_per_sec at step 59: [0-9.]+", log)
+    again = t_cli.main(["--do_test", "-init", t_save, "--platform", "cpu"])
+    assert again["test"] == got["test"]
+    jck, tck = j_ckpt.load_checkpoint(j_save), t_ckpt.load_checkpoint(t_save, "cpu")
+    assert (tck.step, tck.warm_up_steps, tck.adam_count) == (jck[2], jck[4], int(jck[1].count))
+    assert tck.current_learning_rate == pytest.approx(jck[3], rel=1e-12)

@@ -1,5 +1,6 @@
 """The PyTorch port stands alone: importing it loads neither JAX nor the JAX
-package, and no source file of the port (or chip_smoke.py) imports them."""
+package, and no source file of the port (or chip_smoke.py) imports them or,
+for the native sources, names the JAX package's files."""
 
 import ast
 import os
@@ -11,6 +12,27 @@ import pytest
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "knowledgegraphembedding_torch")
 FORBIDDEN = ("jax", "jaxlib", "knowledgegraphembedding_tpu")
+
+
+#: modules of the training slice that the walk above must reach
+TRAIN_MODULES = ("optim", "train", "ops/loss", "sampler/negative", "native/__init__")
+
+
+def test_training_modules_are_scanned():
+    scanned = set(_port_sources())
+    for mod in TRAIN_MODULES:
+        assert os.path.join("knowledgegraphembedding_torch", mod + ".py") in scanned, mod
+
+
+def test_native_sources_build_from_the_port_only():
+    """The port builds its own copy of the sampler source into its own
+    _build/ directory, never the JAX package's."""
+    from knowledgegraphembedding_torch import native
+
+    native_dir = os.path.join(PKG, "native")
+    assert [f for f in os.listdir(native_dir) if f.endswith((".cpp", ".h"))] == ["sampler.cpp"]
+    assert native._SRC == os.path.join(native_dir, "sampler.cpp")
+    assert native.BUILD_DIR == os.path.join(PKG, "_build")
 
 
 def _port_sources():
@@ -27,6 +49,8 @@ def test_importing_every_port_module_loads_no_jax():
         "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
         "    importlib.import_module(m.name)\n"
         "import chip_smoke\n"
+        "from knowledgegraphembedding_torch import native\n"
+        "assert native.available() in (True, False)\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in {FORBIDDEN!r})\n"
         "print(len([m for m in sys.modules if m.startswith(p.__name__)]), bad)\n"
         "sys.exit(1 if bad else 0)\n"
@@ -36,7 +60,7 @@ def test_importing_every_port_module_loads_no_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stdout + proc.stderr
     n_loaded = int(proc.stdout.split()[0])
-    assert n_loaded >= 15, proc.stdout  # every module really was imported
+    assert n_loaded >= 20, proc.stdout  # every module really was imported
 
 
 @pytest.mark.parametrize("relpath", _port_sources())

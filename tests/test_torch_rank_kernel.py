@@ -14,17 +14,22 @@ import torch
 
 import jax.numpy as jnp
 
+from knowledgegraphembedding_torch import eval as t_eval
 from knowledgegraphembedding_torch.config import ModelSpec as TSpec
+from knowledgegraphembedding_torch.config import TrainSpec
 from knowledgegraphembedding_torch.models import kge as t_kge
 from knowledgegraphembedding_torch.ops import rank_kernel
+from knowledgegraphembedding_torch.train import Trainer
 from knowledgegraphembedding_tpu import eval as j_eval
 from knowledgegraphembedding_tpu.config import ModelSpec as JSpec
 from knowledgegraphembedding_tpu.data.filterset import FilterSets
 from knowledgegraphembedding_tpu.data.synthetic import make_random_kg
 from knowledgegraphembedding_tpu.ops import pallas_rank
 
-# the RotatE/TransE cases of tests/test_pallas_rank.py
+# the RotatE/TransE cases of tests/test_pallas_rank.py (rank_counts) and the
+# pRotatE case (rank_counts_protate)
 CASES = [("RotatE", True, False, 16), ("TransE", False, False, 16)]
+ALL_CASES = CASES + [("pRotatE", False, False, 16)]
 MODES = ["head-batch", "tail-batch"]
 
 
@@ -40,6 +45,8 @@ def _setup(model, de, dr, dim, seed=0):
         "entity_embedding": rng.uniform(-r, r, (ds.nentity, jspec.entity_dim)).astype(np.float32),
         "relation_embedding": rng.uniform(-r, r, (ds.nrelation, jspec.relation_dim)).astype(np.float32),
     }
+    if jspec.has_modulus:
+        p["modulus"] = np.float32(0.5 * r)
     filters = FilterSets.build(ds.train, ds.all_true_triples, ds.nentity, ds.nrelation)
     return ds, jspec, tspec, p, filters
 
@@ -90,7 +97,46 @@ def test_rank_counts_ref_matches_pallas_interpret(model, de, dr, dim, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("model,de,dr,dim", CASES, ids=[c[0] for c in CASES])
+def test_protate_rank_counts_ref_matches_pallas_interpret(mode):
+    """K3's plain version and the Pallas kernel on the same sin/cos inputs
+    (the JAX ranker's lane-padded tables, cut back to d columns for the
+    port's sin | cos layout): the counts are equal."""
+    ds, jspec, tspec, p, filters = _setup("pRotatE", False, False, 16)
+    jp = {k: jnp.asarray(v) for k, v in p.items()}
+    pos = ds.test[:8].astype(np.int32)
+    mask = filters.filter_mask_rows(pos, mode)
+    true_ids = pos[:, 0] if mode == "head-batch" else pos[:, 2]
+    ranker = pallas_rank.PallasRanker(jp, jspec, TE=128, interpret=True)
+    d, E = ranker.span, ds.nentity
+    left_p = pallas_rank._pad_cols(pallas_rank.left_rows(jp, jspec, jnp.asarray(pos), mode),
+                                   d, ranker.half_pad, False)
+    lsin, lcos = jnp.sin(left_p), jnp.cos(left_p)
+    tsin, tcos = np.asarray(ranker.tsin), np.asarray(ranker.tcos)
+    true_score = np.asarray(jspec.gamma - jp["modulus"] * jnp.sum(
+        jnp.abs(lsin * tcos[true_ids] - lcos * tsin[true_ids]), axis=-1))
+    mask_t = np.zeros((ranker.Epad, len(pos)), np.int32)
+    mask_t[:E] = mask.T
+    want = np.asarray(pallas_rank.rank_counts_protate(
+        lsin, lcos, jnp.asarray(true_score), jnp.asarray(true_ids), jp["modulus"],
+        ranker.tsin, ranker.tcos, jnp.asarray(mask_t), gamma=jspec.gamma, E=E, TE=128,
+        interpret=True))
+
+    left = torch.from_numpy(np.concatenate([np.asarray(lsin)[:, :d], np.asarray(lcos)[:, :d]], 1))
+    table = torch.from_numpy(np.concatenate([tsin[:E, :d], tcos[:E, :d]], 1))
+    args = (left, torch.from_numpy(np.array(true_score)), torch.from_numpy(true_ids), table,
+            torch.from_numpy(mask))
+    kw = dict(family="pRotatE", gamma=tspec.gamma, E=E, modulus=torch.tensor(p["modulus"]))
+    got = rank_kernel.rank_counts_ref(*args, **kw)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert torch.equal(rank_kernel.rank_counts(*args, **kw), got)
+    # the port's Ranker builds the same sin | cos table (torch's sin/cos may
+    # differ from XLA's in the last bit)
+    t_table = rank_kernel.Ranker(t_kge.params_from_numpy(p, "cpu"), tspec).table
+    np.testing.assert_allclose(t_table.numpy(), table.numpy(), rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("mode", MODES)
+@pytest.mark.parametrize("model,de,dr,dim", ALL_CASES, ids=[c[0] for c in ALL_CASES])
 def test_ranks_batch_kernel_matches_jax_rankers(model, de, dr, dim, mode):
     ds, jspec, tspec, p, filters = _setup(model, de, dr, dim)
     jp = {k: jnp.asarray(v) for k, v in p.items()}
@@ -108,7 +154,8 @@ def test_ranks_batch_kernel_matches_jax_rankers(model, de, dr, dim, mode):
     ranker = rank_kernel.Ranker(tp, tspec)
     left, true_score, true_ids = ranker.inputs(tpos, mode)
     ties = rank_kernel.near_tie_counts(left, true_score, true_ids, ranker.table, tmask,
-                                       family=model, gamma=tspec.gamma, E=ds.nentity)
+                                       family=model, gamma=tspec.gamma, E=ds.nentity,
+                                       modulus=ranker.modulus)
     _assert_ranks_within_ties(got, want_pallas, ties, f"{model} {mode} vs pallas")
     _assert_ranks_within_ties(got, want_xla, ties, f"{model} {mode} vs xla")
 
@@ -128,25 +175,35 @@ def test_wrapper_rejects_mixed_devices_and_unknown_family():
     args = (left, torch.zeros(2), torch.zeros(2, dtype=torch.int32),
             torch.zeros(5, 4), torch.zeros(2, 5, dtype=torch.bool))
     with pytest.raises(ValueError, match="family"):
+        rank_kernel.rank_counts(*args, family="DistMult", gamma=1.0, E=5)
+    with pytest.raises(ValueError, match="modulus"):
         rank_kernel.rank_counts(*args, family="pRotatE", gamma=1.0, E=5)
+    with pytest.raises(ValueError, match="modulus"):
+        rank_kernel.rank_counts(*args, family="TransE", gamma=1.0, E=5, modulus=torch.tensor(1.0))
     meta = (left, torch.zeros(2), torch.zeros(2, dtype=torch.int32),
             torch.zeros(5, 4, device="meta"), torch.zeros(2, 5, dtype=torch.bool))
     with pytest.raises(ValueError, match="table is on meta"):
         rank_kernel.rank_counts(*meta, family="TransE", gamma=1.0, E=5)
 
 
-@pytest.mark.parametrize("model,item", [("pRotatE", "K3"), ("DistMult", "item 9"),
-                                        ("ComplEx", "item 9")])
-def test_ranker_refuses_unported_models(model, item):
+@pytest.mark.parametrize("entry", ["Ranker", "split_ranks"])
+@pytest.mark.parametrize("model", ["DistMult", "ComplEx"])
+def test_ranker_refuses_unported_models(model, entry):
     spec = TSpec(model_name=model, nentity=10, nrelation=2, hidden_dim=4, gamma=1.0,
                  double_entity_embedding=model == "ComplEx",
                  double_relation_embedding=model == "ComplEx")
     params = t_kge.init_params(spec, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        rank_kernel.Ranker(params, spec)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        if entry == "Ranker":
+            rank_kernel.Ranker(params, spec)
+        else:
+            t_eval.split_ranks(params, spec, np.array([[0, 0, 1]]), None, use_kernel=True)
 
 
 def test_get_ranker_cached_on_table_identity():
+    """Keyed on each table's identity and version: the same unchanged
+    tables reuse the ranker, new tables or an in-place update build a new
+    one, and an entry whose tables have moved is dropped."""
     ds, jspec, tspec, p, filters = _setup("TransE", False, False, 16)
     rank_kernel._ranker_cache.clear()
     p1 = t_kge.params_from_numpy(p, "cpu")
@@ -156,8 +213,37 @@ def test_get_ranker_cached_on_table_identity():
     c = rank_kernel.get_ranker(p2, tspec)
     assert c is not a
     assert rank_kernel.get_ranker(p1, tspec) is a
+    p1["entity_embedding"].add_(0.0)  # in place: a new version of the same table
+    b = rank_kernel.get_ranker(p1, tspec)
+    assert b is not a and len(rank_kernel._ranker_cache) == 2
+    assert all(r is not a for _, r in rank_kernel._ranker_cache.values())
     for _ in range(rank_kernel._RANKER_CACHE_MAX):
         rank_kernel.get_ranker(t_kge.params_from_numpy(p, "cpu"), tspec)
     assert len(rank_kernel._ranker_cache) == rank_kernel._RANKER_CACHE_MAX
-    assert rank_kernel.get_ranker(p1, tspec) is not a  # evicted, rebuilt
+    assert rank_kernel.get_ranker(p1, tspec) is not b  # evicted, rebuilt
 
+
+@pytest.mark.parametrize("model,de,dr,dim", [ALL_CASES[0], ALL_CASES[2]],
+                         ids=["RotatE", "pRotatE"])
+def test_ranks_after_in_place_update_are_fresh(model, de, dr, dim):
+    """rank through the cache; one Adam step of a Trainer updates the tables
+    in place; rank again: the ranks are those of a freshly built Ranker."""
+    ds, jspec, tspec, p, filters = _setup(model, de, dr, dim)
+    rank_kernel._ranker_cache.clear()
+    trainer = Trainer(tspec, TrainSpec(negative_sample_size=8, batch_size=32),
+                      t_kge.params_from_numpy(p, "cpu"), lr=0.05, warm_up_steps=100)
+    kw = dict(test_batch_size=16, use_kernel=True)
+    before = t_eval.split_ranks(trainer.params, tspec, ds.test, filters, **kw)
+    rng = np.random.default_rng(0)
+    pos = ds.train[:32]
+    neg = rng.integers(0, ds.nentity, (32, 8)).astype(np.int32)
+    table = trainer.params["entity_embedding"]
+    trainer.one_step((torch.from_numpy(pos), torch.from_numpy(neg),
+                      torch.ones(32), "tail-batch"))
+    assert trainer.params["entity_embedding"] is table  # updated in place
+    after = t_eval.split_ranks(trainer.params, tspec, ds.test, filters, **kw)
+    fresh = {k: v.detach().clone() for k, v in trainer.params.items()}
+    want = t_eval.split_ranks(fresh, tspec, ds.test, filters, **kw)
+    np.testing.assert_array_equal(after, want)
+    assert (after != before).any()  # the step moved some ranks
+    assert len(rank_kernel._ranker_cache) <= rank_kernel._RANKER_CACHE_MAX
