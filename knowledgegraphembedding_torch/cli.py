@@ -4,7 +4,9 @@ codes/run.py §parse_args ≈L27-80, §main ≈L180-360).
 This port trains (``--do_train``: the single-device loop with the host
 sampler, periodic saves, log windows and validation) and evaluates
 (``--do_valid``, ``--do_test``, ``--evaluate_train``) from a random init or
-a checkpoint (``-init``). Flags of work not ported yet are parsed, so a
+a checkpoint (``-init``), all five models: DistMult and ComplEx score and
+rank through dense matmuls, the others through row gathers and the rank
+kernel. Flags of work not ported yet are parsed, so a
 saved ``config.json`` loads, and refused with ``NotImplementedError``
 naming the ROADMAP item. It runs on CUDA unless ``--platform cpu`` is given.
 
@@ -133,9 +135,6 @@ def resolve_device(config: RunConfig) -> torch.device:
 
 def refuse_unported(config: RunConfig) -> None:
     """Flags whose work is not ported yet fail loudly, naming the ROADMAP item."""
-    from .eval import DENSE_MODELS
-
-    evaluates = config.do_valid or config.do_test or config.evaluate_train
     refused = (
         (config.countries, "--countries: AUC-PR evaluation is not ported yet "
                            "(ROADMAP Queue 1, item 10)"),
@@ -149,11 +148,6 @@ def refuse_unported(config: RunConfig) -> None:
         (config.negative_sharing == "batch", "--negative_sharing batch: shared "
                                              "negatives are not ported yet "
                                              "(ROADMAP Queue 1, item 11)"),
-        (config.scoring == "dense", "--scoring dense: dense matmul scoring is "
-                                    "not ported yet (ROADMAP Queue 1, item 9)"),
-        (config.model in DENSE_MODELS and evaluates,
-         f"{config.model} ranking needs dense matmul scoring, not ported yet "
-         "(ROADMAP Queue 1, item 9)"),
         (config.do_train and config.steps_per_dispatch > 1,
          "--steps_per_dispatch > 1: fused multi-step blocks are not ported "
          "yet (ROADMAP Queue 1, item 13)"),
@@ -269,12 +263,16 @@ def main(argv=None) -> dict:
             eval_chunk_size=config.eval_chunk_size,
             test_log_steps=config.test_log_steps,
             logger=logging.getLogger(),
-            use_kernel=config.use_pallas,
+            # as in the JAX package, --use_pallas concerns the distance
+            # family; the bilinear models always rank through matmuls
+            use_kernel=None if spec.model_name in eval_mod.DENSE_MODELS else config.use_pallas,
             device_filter={"auto": None, "host": False, "device": True}[config.eval_filter],
         )
 
     if trainer is not None:
         logging.info("learning_rate = %f", trainer.current_learning_rate)
+        logging.info("negative scoring: %s (--scoring %s)",
+                     "dense" if trainer.dense else "gather", config.scoring)
         _train(trainer, config, ds, device, evaluate, ckpt_mod, log_metrics)
         params, step = trainer.params, trainer.step
 

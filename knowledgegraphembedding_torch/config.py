@@ -81,8 +81,9 @@ class TrainSpec:
     codes/run.py §main ≈L300).
 
     ``scoring`` and ``precision`` are accepted as the JAX package names
-    them; this port trains through the row gather in f32 only (``auto``
-    means ``gather`` here), and ``cli`` refuses ``dense`` and ``bf16``."""
+    them: ``scoring`` picks dense matmul or row-gather negatives by the
+    JAX package's rule (``train.use_dense_scoring``); only ``f32`` is
+    ported, and ``cli`` refuses ``bf16``."""
 
     negative_sample_size: int = 128
     batch_size: int = 1024

@@ -4,12 +4,16 @@ Counterpart of ``knowledgegraphembedding_tpu/eval.py`` (reference:
 codes/model.py §test_step ≈L332-390, codes/dataloader.py §TestDataset
 ≈L118-162). ``rank = 1 + #{unfiltered candidates with score > true score}``,
 which equals the reference's argsort rank without materializing or sorting a
-``[B, E]`` score row. Two rankers compute it:
+``[B, E]`` score row. The rankers:
 
   - ``ops.rank_kernel.Ranker``: the fused CUDA kernel for RotatE, TransE
     and pRotatE (the default on CUDA);
   - ``ranks_batch``: the plain chunked path in PyTorch ops, which scores the
-    true entity in the batch layout as the JAX package's ``ranks_batch``.
+    true entity in the batch layout as the JAX package's ``ranks_batch``;
+    for DistMult and ComplEx one dense matmul scores every candidate;
+  - ``dense_ranks_window``: DistMult and ComplEx with the device-resident
+    filter CSR, correcting the unfiltered count by the row's CSR window
+    instead of building a ``[B, W]`` mask.
 
 Filter masks come from the host CSR (``FilterSets.filter_mask_rows``) or are
 built on the device from a resident CSR (``DeviceFilter``).
@@ -25,10 +29,10 @@ import torch
 from .config import ModelSpec
 from .data.filterset import MAX_DENSE_KEYS, FilterSets, dense_key_arrays
 from .models import kge, scorers
-from .ops import rank_kernel
+from .ops import matmul_scoring, rank_kernel
 
-#: bilinear models rank through dense matmul scoring (not ported yet)
-DENSE_MODELS = ("DistMult", "ComplEx")
+#: bilinear models rank through dense matmul scoring
+DENSE_MODELS = matmul_scoring.DENSE_MODELS
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -41,16 +45,22 @@ def ranks_batch(params: kge.Params, pos: torch.Tensor, filter_mask: torch.Tensor
 
     pos i64[B, 3]; filter_mask bool[B, >= ceil(E/chunk)*chunk], True =
     known-true corruption (the positive itself unfiltered)."""
-    if spec.model_name in DENSE_MODELS:
-        raise rank_kernel.unported(spec.model_name)
     ent = params["entity_embedding"]
     rel = params["relation_embedding"]
     E = spec.nentity
+    pos = pos.to(torch.int64)
+    if spec.model_name in DENSE_MODELS:
+        # one matmul scores every candidate; the true entity's score is an
+        # element of the same row, so strict > never counts it
+        scores = matmul_scoring.dense_scores_all(spec, params, pos, mode)  # [B, E]
+        true_ids = pos[:, 0] if mode == scorers.HEAD_BATCH else pos[:, 2]
+        true_score = torch.gather(scores, 1, true_ids[:, None])
+        beats = (scores > true_score) & filter_mask[:, :E].logical_not()
+        return torch.sum(beats, dim=1, dtype=torch.int32) + 1
     n_chunks = _cdiv(E, chunk)
     if filter_mask.shape[1] < n_chunks * chunk:
         raise ValueError(f"filter mask width {filter_mask.shape[1]} < "
                          f"{n_chunks * chunk} (pad it with _pad_mask)")
-    pos = pos.to(torch.int64)
 
     # the true entity is scored through the same mode-specific grouped form
     # as the candidates (in the reference it sits inside the [B, E] row being
@@ -84,6 +94,37 @@ def ranks_batch(params: kge.Params, pos: torch.Tensor, filter_mask: torch.Tensor
         )
         count += torch.sum(beats, dim=1, dtype=torch.int32)
     return count + 1
+
+
+@torch.no_grad()
+def dense_ranks_window(params: kge.Params, pos: torch.Tensor, offsets: torch.Tensor,
+                       counts: torch.Tensor, values: torch.Tensor, *, spec: ModelSpec,
+                       mode: str, k_max: int) -> torch.Tensor:
+    """Filtered ranks for the bilinear models with no [B, W] filter mask:
+    rank = 1 + #{candidates beating the true} - #{filtered candidates
+    beating it}. A row's filtered candidates are exactly its CSR window
+    (at most k_max distinct ids), so the correction is one [B, k_max]
+    gather from the score block (the JAX package's ``dense_ranks_window``).
+    pos i64[B, 3]; offsets, counts, values: the resident CSR of ``mode``."""
+    pos = pos.to(torch.int64)
+    scores = matmul_scoring.dense_scores_all(spec, params, pos, mode)  # [B, E]
+    E = spec.nentity
+    if mode == scorers.HEAD_BATCH:
+        keys = pos[:, 1] * E + pos[:, 2]
+        true_ids = pos[:, 0]
+    else:
+        keys = pos[:, 0] * spec.nrelation + pos[:, 1]
+        true_ids = pos[:, 2]
+    true_score = torch.gather(scores, 1, true_ids[:, None])
+    # scores[b, true] is true_score itself, so strict > excludes it exactly
+    beats_all = torch.sum(scores > true_score, dim=1, dtype=torch.int32)
+    slot = torch.arange(k_max, device=pos.device)
+    win = values[offsets[keys].to(torch.int64)[:, None] + slot[None, :]].to(torch.int64)
+    valid = slot[None, :] < counts[keys][:, None]
+    win_scores = torch.gather(scores, 1, win)
+    beats_filtered = torch.sum((win_scores > true_score) & valid & (win != true_ids[:, None]),
+                               dim=1, dtype=torch.int32)
+    return beats_all - beats_filtered + 1
 
 
 def _pad_mask(mask: np.ndarray, chunk: int) -> np.ndarray:
@@ -204,16 +245,19 @@ def split_ranks(
     """Filtered ranks of every triple of a split: i64[len(modes), n]. Runs
     without autograd, so params that require grad (training's) build no graph.
 
-    ``use_kernel``: None ranks through the CUDA kernel when the params are
-    on CUDA; False forces the plain chunked path. ``device_filter``: None
-    builds masks on the device when the params are on CUDA and the key
-    space is small enough; False paints them on the host."""
+    ``use_kernel``: None ranks the distance family through the CUDA kernel
+    when the params are on CUDA; False forces the plain chunked path. The
+    bilinear models always rank through dense matmuls (True is refused).
+    ``device_filter``: None uses the device-resident filter when the params
+    are on CUDA and the key space is small enough (bilinear models then
+    rank by ``dense_ranks_window``); False paints masks on the host."""
     device = params["entity_embedding"].device
     on_cuda = device.type == "cuda"
-    if on_cuda and spec.model_name not in rank_kernel.FAMILIES:
-        raise rank_kernel.unported(spec.model_name)
+    dense = spec.model_name in DENSE_MODELS
+    if dense and use_kernel:
+        raise rank_kernel.no_family(spec.model_name)
     if use_kernel is None:
-        use_kernel = on_cuda
+        use_kernel = on_cuda and not dense
     key_space = spec.nentity * spec.nrelation
     if device_filter is None:
         device_filter = on_cuda and key_space <= MAX_DENSE_KEYS
@@ -256,9 +300,14 @@ def split_ranks(
         width = max(_cdiv(spec.nentity, chunk) * chunk, spec.nentity + 1)
         log_every = max(1, test_log_steps)
         for m, mode in enumerate(modes):
+            offsets, counts, values, k_max = dev_filter._modes[mode]
             for b in range(nb):
                 pos = trip_stack[b]
-                out.append(rank(pos, dev_filter.mask_rows(pos, mode, width), mode))
+                if dense:
+                    out.append(dense_ranks_window(params, pos, offsets, counts, values,
+                                                  spec=spec, mode=mode, k_max=k_max))
+                else:
+                    out.append(rank(pos, dev_filter.mask_rows(pos, mode, width), mode))
                 if logger is not None and ((b + 1) % log_every == 0 or b + 1 == nb):
                     done = min((b + 1) * eff_batch, n_real) + n_real * m
                     logger.info("Evaluating the model... (%d/%d)", done, total)

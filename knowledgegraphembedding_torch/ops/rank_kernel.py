@@ -24,29 +24,21 @@ instruction issue (the IEEE sqrt sequence, shared-memory loads per element).
 from __future__ import annotations
 
 import ctypes
-import hashlib
 import os
-import shutil
-import subprocess
-import tempfile
 from typing import Optional
 
 import torch
 
 from ..config import ModelSpec
 from ..models import scorers
+from . import _nvcc
 
 FAMILIES = ("RotatE", "TransE", "pRotatE")
 _FAMILY_CODE = {"RotatE": 0, "TransE": 1, "pRotatE": 2}
 #: families whose rows are two halves: RotatE re | im, pRotatE sin | cos
 _TWO_HALVES = ("RotatE", "pRotatE")
 
-_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG_DIR, "csrc", "rank_counts.cu")
-BUILD_DIR = os.path.join(_PKG_DIR, "_build")
-# no -use_fast_math: rank parity needs the correctly rounded sqrtf
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+SOURCE = os.path.join(_nvcc.CSRC, "rank_counts.cu")
 # dynamic shared memory a block may use on Hopper, less the static counts
 _MAX_SMEM = 232448 - 64
 _KERNEL_ROWS = 8  # kRows in the CUDA source
@@ -54,42 +46,10 @@ _KERNEL_ROWS = 8  # kRows in the CUDA source
 _lib: Optional[ctypes.CDLL] = None
 
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    cand = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc")
-    if os.path.exists(cand):
-        return cand
-    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
-                       "the rank kernel cannot be built")
-
-
 def build() -> str:
-    """Compile ``csrc/rank_counts.cu`` into ``_build/`` unless a library
-    built from the same source and flags is already there; return its path.
-    The compiler's output (ptxas register and spill report) is kept beside
-    it as ``<name>.log``."""
-    with open(SOURCE, "rb") as f:
-        digest = hashlib.sha1(f.read() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so_path = os.path.join(BUILD_DIR, f"librank_counts-{digest}.so")
-    if os.path.exists(so_path):
-        return so_path
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    try:
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, SOURCE],
-                              capture_output=True, text=True)
-        with open(so_path[:-3] + ".log", "w") as f:
-            f.write(proc.stdout + proc.stderr)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
-        os.replace(tmp, so_path)
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
-    return so_path
+    """Compile ``csrc/rank_counts.cu`` into ``_build/`` (once per source and
+    flags, ``_nvcc.build``); return the library's path."""
+    return _nvcc.build(SOURCE)
 
 
 def _library() -> ctypes.CDLL:
@@ -279,13 +239,13 @@ def left_from_rows(fixed, r, spec: ModelSpec, mode: str):
         re_l = re_f * re_r - im_f * im_r
         im_l = re_f * im_r + im_f * re_r
         return torch.cat([re_l, im_l], dim=-1)
-    raise unported(name)
+    raise no_family(name)
 
 
-def unported(name: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{name} ranking needs dense matmul scoring, not ported yet "
-        "(ROADMAP Queue 1, item 9)")
+def no_family(name: str) -> ValueError:
+    return ValueError(
+        f"{name} has no rank-kernel family (one of {FAMILIES}): bilinear models rank "
+        "through dense matmul scoring (ops/matmul_scoring.py, eval.dense_ranks_window)")
 
 
 class Ranker:
@@ -300,7 +260,7 @@ class Ranker:
     @torch.no_grad()
     def __init__(self, params, spec: ModelSpec):
         if spec.model_name not in FAMILIES:
-            raise unported(spec.model_name)
+            raise no_family(spec.model_name)
         self.spec = spec
         self.ent = params["entity_embedding"]
         self.rel = params["relation_embedding"]

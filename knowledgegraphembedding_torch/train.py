@@ -9,9 +9,10 @@ one-shot decay (÷10 at warm_up_steps, a fresh Adam, warm_up×3) happens in
 ``Trainer.one_step``. Logs stay on the device; nothing in a step reads a
 device value on the host.
 
-Only the row-gather scoring of the JAX package is ported: its dense matmul
-scoring (ROADMAP Queue 1, item 9), bf16 (item 11) and shared negatives
-(item 11) are not.
+DistMult and ComplEx score their negatives through one dense matmul against
+the whole entity table where the JAX package does (``use_dense_scoring``,
+``ops/matmul_scoring.py``); the other models gather rows. bf16 and shared
+negatives (ROADMAP Queue 1, item 11) are not ported.
 """
 
 from __future__ import annotations
@@ -25,13 +26,35 @@ from . import optim
 from .config import ModelSpec, TrainSpec
 from .models import kge, scorers
 from .ops import loss as loss_ops
+from .ops import matmul_scoring
+
+
+def use_dense_scoring(spec: ModelSpec, tspec: TrainSpec) -> bool:
+    """The JAX package's rule: dense (one matmul against the whole table)
+    for a bilinear model when ``--scoring dense``, or with ``auto`` when
+    E <= 100 n (the product's B E d multiply-adds then cost less than
+    gathering B n random rows); never for the other models, and
+    ``--scoring dense`` on them is an error."""
+    if tspec.scoring == "gather":
+        return False
+    if not matmul_scoring.supports_dense(spec.model_name):
+        if tspec.scoring == "dense":
+            raise ValueError(f"{spec.model_name} has no dense bilinear form")
+        return False
+    if tspec.scoring == "dense":
+        return True
+    return spec.nentity <= 100 * tspec.negative_sample_size
 
 
 def loss_and_logs(params: kge.Params, spec: ModelSpec, tspec: TrainSpec,
                   pos: torch.Tensor, neg: torch.Tensor, weight: torch.Tensor,
                   mode: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """The loss of one batch: pos [B, 3], neg [B, n], weight [B]."""
-    negative_score = kge.forward(params, spec, (pos, neg), mode)
+    if use_dense_scoring(spec, tspec):
+        # in the params' dtype, as the JAX package computes it
+        negative_score = matmul_scoring.dense_negative_scores(spec, params, pos, neg, mode)
+    else:
+        negative_score = kge.forward(params, spec, (pos, neg), mode)
     positive_score = kge.forward(params, spec, pos, scorers.SINGLE)
     loss, logs = loss_ops.kge_loss(positive_score, negative_score, weight, tspec)
     if tspec.regularization != 0.0:
@@ -68,9 +91,10 @@ class Trainer:
 
     def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
                  warm_up_steps: int, init_step: int = 0):
-        if tspec.scoring == "dense" or tspec.precision != "f32":
+        if tspec.precision != "f32":
             raise NotImplementedError(
-                "only gather scoring in f32 is ported (ROADMAP Queue 1, items 9 and 11)")
+                f"--precision {tspec.precision} is not ported yet (ROADMAP Queue 1, item 11)")
+        self.dense = use_dense_scoring(spec, tspec)  # raises for dense on a non-bilinear model
         self.spec = spec
         self.tspec = tspec
         self.params = trainable(params)

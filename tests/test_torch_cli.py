@@ -68,9 +68,7 @@ def test_do_valid_and_evaluate_train_match_jax(jax_run):
     (["--do_train", "-save", "s", "--steps_per_dispatch", "2"], "item 13"),
     (["--do_train", "-save", "s", "--sampler_backend", "device"], "item 12"),
     (["--do_train", "-save", "s", "--negative_sharing", "batch"], "item 11"),
-    (["--do_train", "-save", "s", "--scoring", "dense"], "item 9"),
     (["--do_train", "-save", "s", "--profile_dir", "p"], "item 15"),
-    (["--do_test", "--model", "DistMult"], "item 9"),
     (["--do_test", "--countries"], "item 10"),
     (["--do_test", "--num_shards", "2"], "item 14"),
     (["--do_test", "--model_shards", "2"], "item 14"),
@@ -80,6 +78,31 @@ def test_do_valid_and_evaluate_train_match_jax(jax_run):
 def test_unported_flags_are_refused(argv, item):
     with pytest.raises(NotImplementedError, match=item):
         t_cli.main(argv + ["--data_path", "synthetic:clustered", "--platform", "cpu"])
+
+
+def test_scoring_dense_on_a_distance_model_is_refused(tmp_path):
+    with pytest.raises(ValueError, match="TransE has no dense bilinear form"):
+        t_cli.main(["--do_train", "-save", str(tmp_path / "s"), "--scoring", "dense",
+                    "--data_path", "synthetic:clustered", "--platform", "cpu"])
+
+
+@pytest.mark.parametrize("model,flags", [("DistMult", []), ("ComplEx", ["-de", "-dr"])])
+def test_bilinear_do_test_matches_jax(jax_run, tmp_path, model, flags):
+    """DistMult and ComplEx evaluation (once refused) through both CLIs from
+    one step-0 checkpoint: the same Test metrics, host and device filters."""
+    data_dir = jax_run[0]
+    init = str(tmp_path / "init")
+    cfg = TRunConfig(model=model, double_entity_embedding="-de" in flags,
+                     double_relation_embedding="-dr" in flags, hidden_dim=8, gamma=4.0,
+                     data_path=data_dir)
+    tds = t_registry.load(data_dir)
+    cfg.nentity, cfg.nrelation = tds.nentity, tds.nrelation
+    params = t_kge.init_params(cfg.model_spec(), torch.Generator().manual_seed(4), device="cpu")
+    t_ckpt.save_initial_checkpoint(params, cfg, init, warm_up_steps=10)
+    want = j_cli.main(["--do_test", "-init", init])
+    for extra in ([], ["--eval_filter", "device"], ["--eval_filter", "host", "--use_pallas"]):
+        got = t_cli.main(["--do_test", "-init", init, "--platform", "cpu", *extra])
+        assert got["test"] == want["test"], extra
 
 
 def test_platform_auto_and_gpu_need_cuda(monkeypatch):

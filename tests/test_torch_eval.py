@@ -50,7 +50,7 @@ def test_device_mask_matches_jax(mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
-@pytest.mark.parametrize("model", ["RotatE", "TransE", "pRotatE"])
+@pytest.mark.parametrize("model", ["RotatE", "TransE", "pRotatE", "DistMult", "ComplEx"])
 def test_ranks_batch_matches_jax(model, mode):
     ds, jspec, tspec, jparams, tparams, jf, tf = _setup(model)
     pos = np.asarray(ds.test[:8], np.int32)
@@ -63,14 +63,14 @@ def test_ranks_batch_matches_jax(model, mode):
 
 
 @pytest.mark.parametrize("device_filter", [False, True])
-@pytest.mark.parametrize("model", ["RotatE", "TransE", "pRotatE"])
+@pytest.mark.parametrize("model", ["RotatE", "TransE", "pRotatE", "DistMult", "ComplEx"])
 def test_test_step_matches_jax(model, device_filter):
     ds, jspec, tspec, jparams, tparams, jf, tf = _setup(model)
     kw = dict(test_batch_size=8, eval_chunk_size=32, device_filter=device_filter)
     want = j_eval.test_step(jparams, jspec, ds.test, jf, use_pallas=False, **kw)
     got_plain = t_eval.test_step(tparams, tspec, ds.test, tf, use_kernel=False, **kw)
     assert got_plain == want
-    if model != "pRotatE":  # the rank kernel's path (its plain version on CPU)
+    if model in ("RotatE", "TransE"):  # the rank kernel's path (its plain version on CPU)
         assert t_eval.test_step(tparams, tspec, ds.test, tf, use_kernel=True, **kw) == want
 
 
@@ -93,11 +93,20 @@ def test_device_and_host_filters_agree_on_edge_shapes(E, chunk, n_test, tb):
 
 
 def test_test_step_on_empty_split_and_bilinear_refusal():
+    """An empty split gives no metrics; DistMult, which the port once
+    refused, ranks through dense matmuls as the JAX package does."""
     ds, jspec, tspec, jparams, tparams, jf, tf = _setup()
     assert t_eval.test_step(tparams, tspec, ds.test[:0], tf) == {}
     ds, jspec, tspec, jparams, tparams, jf, tf = _setup("DistMult")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        t_eval.test_step(tparams, tspec, ds.test, tf, device_filter=False)
+    for device_filter in (False, True):
+        got = t_eval.split_ranks(tparams, tspec, ds.test, tf, test_batch_size=8,
+                                 device_filter=device_filter)
+        for m, mode in enumerate(MODES):
+            mask = t_eval._pad_mask(tf.filter_mask_rows(ds.test, mode), 16)
+            want = np.asarray(j_eval.ranks_batch(
+                jparams, jnp.asarray(ds.test.astype(np.int32)), jnp.asarray(mask),
+                spec=jspec, mode=mode, chunk=16))
+            np.testing.assert_array_equal(got[m], want)
 
 
 def test_eff_eval_batch_and_metrics_match_jax():

@@ -24,6 +24,12 @@ def test_training_modules_are_scanned():
         assert os.path.join("knowledgegraphembedding_torch", mod + ".py") in scanned, mod
 
 
+@pytest.mark.parametrize("mod", ["ops/_nvcc", "ops/chain_probe", "ops/matmul_scoring",
+                                 "utils/sass", "utils/vpu_probe", "vpu_roofline"])
+def test_roofline_and_dense_modules_are_scanned(mod):
+    assert os.path.join("knowledgegraphembedding_torch", mod + ".py") in _port_sources()
+
+
 def test_native_sources_build_from_the_port_only():
     """The port builds its own copy of the sampler source into its own
     _build/ directory, never the JAX package's."""

@@ -193,7 +193,7 @@ def test_ranker_refuses_unported_models(model, entry):
                  double_entity_embedding=model == "ComplEx",
                  double_relation_embedding=model == "ComplEx")
     params = t_kge.init_params(spec, torch.Generator().manual_seed(0), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
+    with pytest.raises(ValueError, match="no rank-kernel family.*dense matmul scoring"):
         if entry == "Ranker":
             rank_kernel.Ranker(params, spec)
         else:

@@ -60,7 +60,8 @@ def _specs(ds, model, de, dr, adv, uni, reg, d=8):
               gamma=6.0, double_entity_embedding=de, double_relation_embedding=dr)
     tkw = dict(negative_sample_size=8, batch_size=16, negative_adversarial_sampling=adv,
                adversarial_temperature=1.0, uni_weight=uni, regularization=reg)
-    return JSpec(**kw), TSpec(**kw), JTrainSpec(scoring="gather", **tkw), TTrainSpec(**tkw)
+    return (JSpec(**kw), TSpec(**kw), JTrainSpec(scoring="gather", **tkw),
+            TTrainSpec(scoring="gather", **tkw))
 
 
 def _params(spec, dtype, seed=0):
@@ -212,6 +213,10 @@ def test_trainer_owns_its_params_and_refuses_unported_modes(stream):
     tt = t_train.Trainer(tspec, tts, p, lr=0.01, warm_up_steps=5)
     assert tt.params["entity_embedding"] is not p["entity_embedding"]
     assert all(v.requires_grad and v.is_leaf for v in tt.params.values())
-    for bad in (TTrainSpec(scoring="dense"), TTrainSpec(precision="bf16")):
-        with pytest.raises(NotImplementedError, match="item"):
-            t_train.Trainer(tspec, bad, p, lr=0.01, warm_up_steps=5)
+    # TransE has no bilinear form, as the JAX package's use_dense_scoring says
+    with pytest.raises(ValueError, match="TransE has no dense bilinear form"):
+        t_train.Trainer(tspec, TTrainSpec(scoring="dense"), p, lr=0.01, warm_up_steps=5)
+    with pytest.raises(ValueError, match="TransE has no dense bilinear form"):
+        j_train.use_dense_scoring(jspec, JTrainSpec(scoring="dense"))
+    with pytest.raises(NotImplementedError, match="item 11"):
+        t_train.Trainer(tspec, TTrainSpec(precision="bf16"), p, lr=0.01, warm_up_steps=5)
