@@ -16,16 +16,19 @@ over the whole table: nothing ``[B, E]``-shaped is written to device memory.
 ``::_rank_kernel_protate``) for CUDA tensors and runs its plain PyTorch
 version ``rank_counts_ref`` for CPU tensors. The kernel is
 built with ``nvcc`` at first use into ``_build/`` and bound with ctypes.
-What bounds it on an H100 is set out at the top of the CUDA source: by
-bytes and data-sheet FLOPs the table read; the measured time points to
-instruction issue (the IEEE sqrt sequence, shared-memory loads per element).
+What bounds it on an H100, and its design (one pass over the table, a
+register tile of 4 rows x 4 candidates a thread, width chunks staged with
+cp.async, no width limit), are set out at the top of the CUDA source.
+``launch_plan`` computes a launch's grid, tiles and shared memory once per
+shape and SM count; the wrapper passes it to the C entry point.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
-from typing import Optional
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -39,11 +42,31 @@ _FAMILY_CODE = {"RotatE": 0, "TransE": 1, "pRotatE": 2}
 _TWO_HALVES = ("RotatE", "pRotatE")
 
 SOURCE = os.path.join(_nvcc.CSRC, "rank_counts.cu")
-# dynamic shared memory a block may use on Hopper, less the static counts
-_MAX_SMEM = 232448 - 64
-_KERNEL_ROWS = 8  # kRows in the CUDA source
+
+# The kernel's compile-time shape (constants at the top of the CUDA source;
+# the library's rank_counts_shape is checked against them when it loads)
+_THREADS = 256      # threads a block
+_MIN_BLOCKS = 2     # resident blocks per SM that the launch bound guarantees
+_ROW_BLOCK = 16     # eval rows a block holds
+_TILE = 16          # candidates a tile
+_CHUNK = 64         # elements of each half staged per step
+_STAGES = 4         # cp.async ring depth: this chunk and 3 ahead
+_SPLIT = 16         # threads that split the width of one (row, candidate) tile
+_REG_TILE = (4, 4)  # (rows, candidates) a thread accumulates
+_PAD = {2: 4, 1: 8}  # floats after each staged line half, by halves a row
+_SHAPE = (_THREADS, _MIN_BLOCKS, _ROW_BLOCK, _TILE, _CHUNK, _STAGES, _SPLIT) + _REG_TILE
+#: (row, candidate, element) terms one thread scores per staged chunk
+PAIR_ELEMENTS_PER_STEP = _REG_TILE[0] * _REG_TILE[1] * _CHUNK // _SPLIT
+# Hopper: shared memory per SM, the most one block may take, and what the
+# runtime reserves per resident block
+_SMEM_PER_SM = 233472
+_SMEM_PER_BLOCK = 232448
+_SMEM_RESERVED = 1024
+_MAX_THREADS_PER_SM = 2048
 
 _lib: Optional[ctypes.CDLL] = None
+_ready_devices: set = set()
+_sm_counts: dict = {}
 
 
 def build() -> str:
@@ -52,19 +75,156 @@ def build() -> str:
     return _nvcc.build(SOURCE)
 
 
-def _library() -> ctypes.CDLL:
+def _library(device: torch.device) -> ctypes.CDLL:
+    """The loaded library, its shape checked against ``_SHAPE``, with the
+    shared-memory attribute set once on ``device``."""
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
         vp, ci = ctypes.c_void_p, ctypes.c_int
         lib.rank_counts_launch.argtypes = [
-            ci, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_longlong,
-            ctypes.c_float, ci, vp]
+            ci, vp, vp, vp, vp, vp, vp, vp, vp, ci, ci, ci, ctypes.c_longlong,
+            ctypes.c_float, ci, ci, ci, ci, ci, ci, vp]
         lib.rank_counts_launch.restype = ci
         lib.rank_counts_error_string.argtypes = [ci]
         lib.rank_counts_error_string.restype = ctypes.c_char_p
+        lib.rank_counts_smem_bytes.argtypes = [ci]
+        lib.rank_counts_smem_bytes.restype = ci
+        lib.rank_counts_init.restype = ci
+        lib.rank_counts_occupancy.argtypes = [ci, ci, ctypes.POINTER(ci)]
+        lib.rank_counts_occupancy.restype = ci
+        lib.rank_counts_sqrt.argtypes = [vp, vp, ctypes.c_longlong, vp]
+        lib.rank_counts_sqrt.restype = ci
+        shape = (ci * len(_SHAPE))()
+        lib.rank_counts_shape(shape)
+        if tuple(shape) != _SHAPE:
+            raise RuntimeError(f"{SOURCE} is built with shape {tuple(shape)}, "
+                               f"this module plans for {_SHAPE}")
+        for family, code in _FAMILY_CODE.items():
+            if lib.rank_counts_smem_bytes(code) != smem_bytes(family):
+                raise RuntimeError(f"{family}: the library takes "
+                                   f"{lib.rank_counts_smem_bytes(code)} bytes of shared "
+                                   f"memory, the plan {smem_bytes(family)}")
         _lib = lib
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _ready_devices:
+        with torch.cuda.device(index):
+            _raise(_lib, _lib.rank_counts_init(), "rank_counts_init")
+        _ready_devices.add(index)
     return _lib
+
+
+def _raise(lib, err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what} failed: " + lib.rank_counts_error_string(err).decode())
+
+
+def _halves(family: str) -> int:
+    return 2 if family in _TWO_HALVES else 1
+
+
+def smem_bytes(family: str) -> int:
+    """Dynamic shared memory of one block: the ``_STAGES`` staging buffers
+    (L rows and candidates, each half of ``_CHUNK`` floats and a pad) and
+    the partial sums of the width split, which share the ring buffer of a
+    tile's last chunk where they fit (two halves a row), else follow it."""
+    halves = _halves(family)
+    stage = (_ROW_BLOCK + _TILE) * halves * (_CHUNK + _PAD[halves])
+    partials = _SPLIT * (_ROW_BLOCK * _TILE + 4)
+    return 4 * (_STAGES * stage + (0 if stage >= partials else partials))
+
+
+class LaunchPlan(NamedTuple):
+    """How one ``rank_counts`` launch covers its B x E pairs and D floats."""
+    family: str
+    halves: int          # 2: re | im (sin | cos) halves; 1: TransE
+    half: int            # elements a half holds (D / halves)
+    chunks: int          # staged steps along the width per tile
+    tiles: int           # candidate tiles of _TILE
+    grid: Tuple[int, int]  # (row blocks of _ROW_BLOCK, candidate-tile slots)
+    threads: int
+    smem_bytes: int
+    stages: int
+    vec16: bool          # 16-byte copies (a half's width a multiple of 4)
+    blocks_per_sm: int   # resident blocks per SM the plan counts on
+    waves: float         # blocks / (SMs x blocks_per_sm)
+    handed: bool         # tiles past the first handed out by a counter
+    tiles_per_block: Tuple[int, int]  # fewest and most tiles a block walks
+                                      # when they are not handed out
+
+
+def _sm_count(device: torch.device) -> int:
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _sm_counts[index]
+
+
+@functools.lru_cache(maxsize=256)
+def launch_plan(family: str, B: int, D: int, E: int, sms: int,
+                aligned: bool = True) -> LaunchPlan:
+    """The launch of ``rank_counts`` for B rows, width D, E candidates on a
+    card of ``sms`` SMs (``aligned``: L and the table start on 16 bytes).
+    One wave: as many candidate-tile slots per row block as the resident
+    blocks allow. Block y scores tile y first; where a tile has more chunks
+    than the copies run ahead, the kernel hands out the rest from a counter
+    per row block as blocks finish (``handed``), else each block walks its
+    tiles with a grid stride, so blocks differ by at most one tile. Cached
+    per shape and SM count."""
+    if family not in FAMILIES:
+        raise ValueError(f"family {family!r} not in {FAMILIES}")
+    if B < 1 or D < 1 or E < 1:
+        raise ValueError(f"B={B}, D={D}, E={E}: each must be at least 1")
+    halves = _halves(family)
+    if D % halves:
+        raise ValueError(f"{family} rows need an even width, got {D}")
+    half = D // halves
+    smem = smem_bytes(family)
+    if smem > _SMEM_PER_BLOCK:
+        raise ValueError(f"{smem} bytes of shared memory exceed a block's {_SMEM_PER_BLOCK}")
+    blocks_per_sm = min(_MIN_BLOCKS, _SMEM_PER_SM // (smem + _SMEM_RESERVED),
+                        _MAX_THREADS_PER_SM // _THREADS)
+    gx = -(-B // _ROW_BLOCK)
+    tiles = -(-E // _TILE)
+    gy = min(tiles, max(1, sms * blocks_per_sm // gx))
+    chunks = -(-half // _CHUNK)
+    return LaunchPlan(
+        family=family, halves=halves, half=half, chunks=chunks, tiles=tiles,
+        grid=(gx, gy), threads=_THREADS, smem_bytes=smem, stages=_STAGES,
+        vec16=aligned and half % 4 == 0, blocks_per_sm=blocks_per_sm,
+        waves=gx * gy / (sms * blocks_per_sm), handed=chunks >= _STAGES,
+        tiles_per_block=(tiles // gy, -(-tiles // gy)))
+
+
+def group_sqrt(x: torch.Tensor) -> torch.Tensor:
+    """The rank kernel's square root (``sqrt_group`` in the CUDA source:
+    sqrtf's fast path for 16 values at a time behind one range test) over a
+    contiguous f32 tensor whose size is a multiple of 16, for holding it
+    against ``torch.sqrt``; on the CPU, ``torch.sqrt``."""
+    if x.device.type == "cpu":
+        return torch.sqrt(x)
+    _check("x", x, (torch.float32,), x.dim(), x.device)
+    if x.numel() % 16:
+        raise ValueError(f"{x.numel()} values: group_sqrt takes a multiple of 16")
+    y = torch.empty_like(x)
+    lib = _library(x.device)
+    with torch.cuda.device(x.device):
+        _raise(lib, lib.rank_counts_sqrt(x.data_ptr(), y.data_ptr(), x.numel(),
+                                         torch.cuda.current_stream(x.device).cuda_stream),
+               "rank_counts_sqrt")
+    return y
+
+
+def occupancy(family: str, vec16: bool = True, device="cuda") -> int:
+    """Resident blocks per SM of one instantiation on ``device``, by the
+    occupancy API (registers, shared memory and threads)."""
+    device = torch.device(device)
+    lib = _library(device)
+    blocks = ctypes.c_int(0)
+    with torch.cuda.device(device):
+        _raise(lib, lib.rank_counts_occupancy(_FAMILY_CODE[family], int(vec16),
+                                              ctypes.byref(blocks)), "rank_counts_occupancy")
+    return blocks.value
 
 
 def distance_scores(left: torch.Tensor, cand: torch.Tensor, family: str,
@@ -111,6 +271,26 @@ def rank_counts_ref(left, true_score, true_ids, table, mask, *, family: str,
         )
         count += torch.sum(beats, dim=1, dtype=torch.int32)
     return count
+
+
+def synthetic_inputs(family: str, B: int, E: int, D: int, seed: int = 0, device="cpu"):
+    """Random inputs of one launch at any shape, for holding the kernel
+    against its plain version at the tile edges: (args, kwargs) of
+    ``rank_counts``. L and the table uniform in [-1, 1); each row's true
+    entity drawn from the E candidates and its true score the plain score
+    against it, so counts spread over 0..E-1; about a tenth of the mask
+    set; the mask one column wider than E."""
+    gen = torch.Generator().manual_seed(seed)
+    left = torch.rand(B, D, generator=gen) * 2 - 1
+    table = torch.rand(E, D, generator=gen) * 2 - 1
+    true_ids = torch.randint(0, E, (B,), generator=gen, dtype=torch.int32)
+    mask = torch.rand(B, E + 1, generator=gen) < 0.1
+    modulus = torch.tensor(0.75) if family == "pRotatE" else None
+    true_score = distance_scores(left, table[true_ids.long()], family, 9.0, modulus)
+    args = tuple(t.to(device).contiguous() for t in (left, true_score, true_ids, table, mask))
+    kw = dict(family=family, gamma=9.0, E=E,
+              modulus=None if modulus is None else modulus.to(device))
+    return args, kw
 
 
 #: scores this close to the true score, relative to max(1, |true|), may
@@ -192,25 +372,28 @@ def rank_counts(left, true_score, true_ids, table, mask, *, family: str,
         raise ValueError("true_score, true_ids and mask must have B rows")
     if mask.shape[1] < E:
         raise ValueError(f"mask width {mask.shape[1]} < E={E}")
-    if family in _TWO_HALVES and D % 2:
-        raise ValueError(f"{family} rows need an even width, got {D}")
-    if _KERNEL_ROWS * D * 4 > _MAX_SMEM:
-        raise ValueError(f"width {D} exceeds the kernel's shared-memory budget")
-    if max(B, E, table.numel()) >= 2**31:
+    if max(B, E, table.numel(), left.numel()) >= 2**31:
         raise ValueError("sizes must fit in int32")
-    out = torch.zeros(B, dtype=torch.int32, device=device)
     if B == 0:
-        return out
-    lib = _library()
+        return torch.zeros(0, dtype=torch.int32, device=device)
+    aligned = left.data_ptr() % 16 == 0 and table.data_ptr() % 16 == 0
+    plan = launch_plan(family, B, D, E, _sm_count(device), aligned)
+    # the counts and each row block's tile counter, zeroed at once
+    zeroed = torch.zeros(B + plan.grid[0], dtype=torch.int32, device=device)
+    out, handed = zeroed[:B], zeroed[B:]
+    lib = _library(device)
     stream = torch.cuda.current_stream(device).cuda_stream
-    err = lib.rank_counts_launch(
-        _FAMILY_CODE[family], left.data_ptr(), true_score.data_ptr(),
-        true_ids.data_ptr(), table.data_ptr(), mask.data_ptr(),
-        None if modulus is None else modulus.data_ptr(), out.data_ptr(),
-        B, D, E, mask.stride(0), float(gamma), device.index or 0, stream)
-    if err != 0:
-        raise RuntimeError("rank_counts kernel launch failed: "
-                           + lib.rank_counts_error_string(err).decode())
+    args = (_FAMILY_CODE[family], left.data_ptr(), true_score.data_ptr(),
+            true_ids.data_ptr(), table.data_ptr(), mask.data_ptr(),
+            None if modulus is None else modulus.data_ptr(), out.data_ptr(),
+            handed.data_ptr(), B, D, E, mask.stride(0), float(gamma), *plan.grid,
+            plan.smem_bytes, plan.chunks, plan.tiles, int(plan.vec16), stream)
+    if device.index is None or device.index == torch.cuda.current_device():
+        err = lib.rank_counts_launch(*args)
+    else:
+        with torch.cuda.device(device):
+            err = lib.rank_counts_launch(*args)
+    _raise(lib, err, "rank_counts kernel launch")
     rank_counts.launches += 1
     return out
 

@@ -8,16 +8,21 @@ thread issues
 
   - per link of the chain probe (``csrc/chain_probe.cu``): the difference
     between the K=16 and K=8 instantiations of the reps loop, over 8;
-  - per (row, element) of each rank-kernel family (``csrc/rank_counts.cu``):
-    the innermost loop that reads the shared-memory L rows, over the
-    elements one pass of it scores (its candidate loads give the passes,
-    times the kernel's 8 rows).
+  - per (row, candidate, element) of each rank-kernel family
+    (``csrc/rank_counts.cu``, the instantiation with 16-byte copies that
+    the published widths take): the chunk loop, the innermost loop with the
+    most shared-memory loads, over its passes (one ``__syncthreads`` each)
+    times the (row, candidate, element) terms a thread scores in one pass,
+    which the tile shape gives (``rank_kernel.PAIR_ELEMENTS_PER_STEP``).
 
 Both walk the fast path: a forward conditional branch over a region that
 holds a call, a local-memory access, a global load or a loop (sqrtf's
 special cases, sinf's large-argument reduction) is taken as the data of
 the probe and of the rank kernels never enter it; the branch itself
-issues and is counted.
+issues and is counted. So is a region that holds a global atomic: the
+rank kernel's one thread a block that takes the next tile from the
+counter, once a tile. A region of asynchronous copies (``LDGSTS``, the
+next chunk's staging) is walked: the steady state issues it every pass.
 """
 
 from __future__ import annotations
@@ -38,7 +43,7 @@ class Instr(NamedTuple):
 
 
 _LINE = re.compile(r"\s+/\*([0-9a-f]{4,})\*/\s+(@!?U?P\w+\s+)?([A-Z][A-Z0-9_.]*)\s*([^;]*);")
-_SLOW = ("CALL", "LDL", "STL", "LDG")
+_SLOW = ("CALL", "LDL", "STL", "LDG", "ATOMG", "ATOM", "RED")  # opcode bases; LDGSTS is not one
 _FP32 = ("FADD", "FMUL", "FFMA", "FMNMX", "FSETP", "FSEL", "FSET", "FCHK", "FRND")
 
 
@@ -100,7 +105,7 @@ def fast_path(instrs: List[Instr], first: int, last: int) -> collections.Counter
         if ins.op == "BRA" and _target(ins) > ins.addr:
             j = index[_target(ins)]
             region = instrs[i + 1:j]
-            slow = any(x.op.startswith(_SLOW) or (x.op == "BRA" and _target(x) < x.addr)
+            slow = any(x.op.split(".")[0] in _SLOW or (x.op == "BRA" and _target(x) < x.addr)
                        for x in region)
             if not ins.pred or slow:
                 i = j
@@ -139,14 +144,15 @@ def chain_link_counts(text: str, ks=(8, 16)) -> Dict[int, collections.Counter]:
     return out
 
 
-def rank_element_counts(text: str, rows: int, loads_per_pass: Dict[int, int]
+def rank_element_counts(text: str, pair_elements_per_pass: int
                         ) -> Dict[int, collections.Counter]:
-    """{family code: opcodes issued per (row, element)} of the rank kernel:
-    the fast path of the innermost loop with the most shared-memory loads,
-    over (its candidate loads / ``loads_per_pass[family]``) x ``rows``."""
+    """{family code: opcodes issued per (row, candidate, element)} of the
+    rank kernel's 16-byte-copy instantiations: the fast path of the
+    innermost loop with the most shared-memory loads, over (its barriers,
+    one a pass) x ``pair_elements_per_pass``."""
     out = {}
     for name, instrs in parse(text).items():
-        m = re.search(r"rank_counts_kernelILi(\d+)E", name)
+        m = re.search(r"rank_counts_kernelILi(\d+)ELb1E", name)
         if not m:
             continue
         loops = _loops(instrs)
@@ -155,8 +161,9 @@ def rank_element_counts(text: str, rows: int, loads_per_pass: Dict[int, int]
         first, last = max(inner, key=lambda fl: sum(unit(x.op) == "lds"
                                                      for x in instrs[fl[0]:fl[1] + 1]))
         counts = fast_path(instrs, first, last)
-        family = int(m.group(1))
-        loads = sum(n for op, n in counts.items() if op.startswith("LDG"))
-        elements = loads // loads_per_pass[family] * rows
-        out[family] = collections.Counter({op: n / elements for op, n in counts.items()})
+        passes = sum(n for op, n in counts.items() if op.startswith("BAR.SYNC"))
+        if passes == 0:
+            raise ValueError(f"{name}: the chunk loop holds no BAR.SYNC")
+        per = passes * pair_elements_per_pass
+        out[int(m.group(1))] = collections.Counter({op: n / per for op, n in counts.items()})
     return out

@@ -29,31 +29,40 @@ import torch
 
 from ..ops.chain_probe import LINKS, SHAPE, chain
 
-#: per (row, streamed element) FP32 instructions of each rank-kernel family,
-#: read off ``cuobjdump -sass`` of ``csrc/rank_counts.cu`` (``utils/sass.py``,
-#: the ``sass`` phase of ``chip_smoke.py`` checks them), not copied from the
-#: TPU kernel's fused-op counts. Per element, as compiled for sm_90a:
+#: per (row, candidate, streamed element) FP32 instructions of each
+#: rank-kernel family, read off ``cuobjdump -sass`` of ``csrc/rank_counts.cu``
+#: (``utils/sass.py``; the ``sass`` phase of ``chip_smoke.py`` checks them),
+#: not copied from the TPU kernel's fused-op counts. Per element, as compiled
+#: for sm_90a:
 #:   RotatE  (per complex element): FADD x4 (two differences, the sum of
-#:           squares, the accumulate), FMUL x2 = 6, plus one sqrtf, whose
-#:           fast path (MUFU.RSQ, 2 FMUL.FTZ, 2 FFMA, IADD3, ISETP, a branch,
-#:           BSSY/BSYNC: 10), which ``roofline_seconds_per_batch`` charges
-#:           at the measured sqrt chain rate, as the JAX model does (the
-#:           peak bound of ``chip_smoke.py`` charges it at the issue rate); 2
-#:           LDS (the L row's re and im from shared memory) and ~3.4 integer
-#:           address instructions;
+#:           squares, the accumulate), FMUL x2 = 6, plus one correctly
+#:           rounded sqrt. ``roofline_seconds_per_batch`` charges the sqrt at
+#:           the measured cost of the chain probe's sqrtf link, as the JAX
+#:           model does; the peak bound of ``chip_smoke.py`` at the kernel's
+#:           own grouped sqrt, ``KERNEL_SQRT`` (6.25 instructions), and its
+#:           historical column at sqrtf's 10 fast-path instructions
+#:           (MUFU.RSQ, 2 FMUL.FTZ, 2 FFMA, IADD3, ISETP, a branch,
+#:           BSSY/BSYNC);
 #:   TransE: FADD x2 (the difference, the accumulate with |.| as an operand
-#:           modifier) = 2; 1 LDS, ~0.3 other;
+#:           modifier) = 2;
 #:   pRotatE (per sin | cos pair): FMUL x2, FADD x2 (the difference, the
-#:           accumulate of its |.|) = 4; 2 LDS, ~2.6 integer address
-#:           instructions.
-#: Known blind spot: like the JAX model this one has no term for the
-#: shared-memory loads (1-2 per element) or the integer address arithmetic
-#: the compiler adds; it counts the FP32 pipe and the sqrt only.
+#:           accumulate of its |.|) = 4.
+#: Beyond these the register tile (4 rows x 4 candidates a thread) issues
+#: 0.30 shared-memory loads (LDS.128, and 3 never-taken LDS per chunk) and
+#: under 1 other instruction per element (the first version: 2 LDS and
+#: ~3.4 integer address instructions); like the JAX model, the roofline
+#: counts the FP32 pipe and the sqrt only.
 KERNEL_MIX = {
     "RotatE": {"alu": 6, "special": ("sqrt", 1)},
     "TransE": {"alu": 2, "special": None},
     "pRotatE": {"alu": 4, "special": None},
 }
+
+#: the rank kernel's own sqrt per root (``sqrt_group`` in csrc/rank_counts.cu):
+#: sqrtf's fast path (MUFU.RSQ, 2 FMUL.FTZ, 2 FFMA) for 16 roots at once
+#: behind sqrtf's range test, folded into a running maximum (one VIADDMNMX a
+#: root) and one ISETP, BSSY, branch and BSYNC a group of 16
+KERNEL_SQRT = {"fp32": 4, "mufu": 1, "other": 1 + 4 / 16}
 
 
 def host_clock(fn: Callable[[], object]) -> float:

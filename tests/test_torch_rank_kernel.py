@@ -247,3 +247,95 @@ def test_ranks_after_in_place_update_are_fresh(model, de, dr, dim):
     np.testing.assert_array_equal(after, want)
     assert (after != before).any()  # the step moved some ranks
     assert len(rank_kernel._ranker_cache) <= rank_kernel._RANKER_CACHE_MAX
+
+
+PLAN_WIDTHS = [2, 26, 2000, 8000]
+
+
+@pytest.mark.parametrize("E", [1, 37, 14541])
+@pytest.mark.parametrize("B", [1, 16, 17, 128, 129])
+@pytest.mark.parametrize("family", rank_kernel.FAMILIES)
+def test_launch_plan_covers_every_pair_once_and_fills_the_card(family, B, E):
+    """On a 132-SM card: every (row, candidate) pair lies in exactly one
+    block's rows and tiles, every element of a row in exactly one chunk
+    quad, the shared memory fits, the grid is one wave that fills the SMs,
+    and any width is taken."""
+    sms = 132
+    for D in PLAN_WIDTHS:
+        plan = rank_kernel.launch_plan(family, B, D, E, sms)
+        gx, gy = plan.grid
+        row_block, tile = rank_kernel._ROW_BLOCK, rank_kernel._TILE
+        # rows: block x holds rows [16 x, 16 x + 16); candidates: block y walks
+        # tiles y, y + gy, ...
+        rows = np.zeros(gx * row_block, np.int64)
+        for x in range(gx):
+            rows[x * row_block:(x + 1) * row_block] += 1
+        cands = np.zeros(plan.tiles * tile, np.int64)
+        walked = []
+        for y in range(gy):
+            mine = np.arange(y, plan.tiles, gy)
+            walked.append(len(mine))
+            cands[(mine[:, None] * tile + np.arange(tile)).ravel()] += 1
+        assert (rows[:B] == 1).all() and (cands[:E] == 1).all()
+        assert (gx - 1) * row_block < B and (plan.tiles - 1) * tile < E
+        assert (min(walked), max(walked)) == plan.tiles_per_block
+        assert plan.tiles_per_block[1] - plan.tiles_per_block[0] <= 1
+        # handed out: block y scores tile y, then whichever block asks the
+        # row block's counter next (here in a random order) gets gy + n
+        assert plan.handed == (plan.chunks >= rank_kernel._STAGES)
+        if plan.handed:
+            rng = np.random.default_rng(B + E + D)
+            scored = np.zeros(plan.tiles, np.int64)
+            scored[:gy] += 1
+            asking, handed = list(range(gy)), 0
+            while asking:
+                y = asking.pop(int(rng.integers(len(asking))))
+                ct = gy + handed
+                handed += 1
+                if ct < plan.tiles:
+                    scored[ct] += 1
+                    asking.append(y)
+            assert (scored == 1).all()
+        # elements: chunks of _CHUNK cover each half once; the split threads'
+        # quads (thread s: elements 4 s .. 4 s + 3) cover each chunk once
+        chunk = rank_kernel._CHUNK
+        assert plan.half * plan.halves == D
+        assert (plan.chunks - 1) * chunk < plan.half <= plan.chunks * chunk
+        assert 4 * rank_kernel._SPLIT == chunk
+        assert plan.vec16 == (plan.half % 4 == 0)
+        # shared memory within a block's 232,448 bytes and the SM's 233,472
+        assert plan.smem_bytes == rank_kernel.smem_bytes(family) <= 232448
+        assert plan.blocks_per_sm * (plan.smem_bytes + 1024) <= 233472
+        assert plan.threads * plan.blocks_per_sm <= 2048
+        # one wave that fills the card, as far as the work allows
+        assert gx * gy >= min(sms, gx * plan.tiles)
+        assert plan.waves <= 1.0 and plan.waves == gx * gy / (sms * plan.blocks_per_sm)
+    # a plan is made once per shape and card
+    assert rank_kernel.launch_plan(family, B, 2000, E, sms) is rank_kernel.launch_plan(
+        family, B, 2000, E, sms)
+
+
+def test_launch_plan_refuses_what_the_kernel_does_not_take():
+    assert not rank_kernel.launch_plan("RotatE", 16, 2000, 100, 132, aligned=False).vec16
+    assert rank_kernel.launch_plan("TransE", 16, 13, 100, 132).chunks == 1
+    with pytest.raises(ValueError, match="even width"):
+        rank_kernel.launch_plan("pRotatE", 16, 13, 100, 132)
+    with pytest.raises(ValueError, match="at least 1"):
+        rank_kernel.launch_plan("TransE", 16, 8, 0, 132)
+    with pytest.raises(ValueError, match="family"):
+        rank_kernel.launch_plan("DistMult", 16, 8, 10, 132)
+    # many rows: more row blocks than resident slots, one tile slot each
+    plan = rank_kernel.launch_plan("TransE", 16 * 1000, 8, 10, 132)
+    assert plan.grid == (1000, 1) and plan.waves > 1
+
+
+@pytest.mark.parametrize("family", rank_kernel.FAMILIES)
+def test_synthetic_inputs_spread_the_counts(family):
+    """The tile-edge sweep's inputs: counts within 0..E-1 and not all equal,
+    the same from the same seed."""
+    args, kw = rank_kernel.synthetic_inputs(family, 17, 37, 26 if family != "TransE" else 13)
+    got = rank_kernel.rank_counts(*args, **kw)
+    assert got.shape == (17,) and int(got.min()) >= 0 and int(got.max()) < 37
+    assert len(set(got.tolist())) > 3
+    again, _ = rank_kernel.synthetic_inputs(family, 17, 37, 26 if family != "TransE" else 13)
+    assert all(torch.equal(a, b) for a, b in zip(args, again))
