@@ -1,0 +1,230 @@
+"""Fused multi-step training: blocks of k steps (device draw, forward,
+backward, Adam), replayed from captured CUDA graphs
+(``--steps_per_dispatch k``).
+
+Counterpart of the single-device half of
+``knowledgegraphembedding_tpu/fused_train.py`` (reference: codes/run.py
+§main ≈L280-340). JAX scans k steps inside one compiled program; here one
+train step per corruption mode is captured as a CUDA graph, covering the
+sampler's draw, the forward pass, the loss, autograd's backward, Adam in
+place and the log sums added into a device buffer. A block then
+
+  - copies its ``[k, B]`` epoch indices into a static device buffer, once,
+    from pinned memory without blocking;
+  - replays the tail and head graphs in the JAX order (tail at even global
+    steps), each replay reading its row of the buffer through a device slot
+    counter and advancing the device step counter itself;
+  - reads nothing back: the summed logs stay on the device.
+
+So the host does O(1) work a step. The draw index of step s comes from the
+global step (``device_sampler.draw_index``, the rule of JAX's
+``_step_key``), so block(k) draws what k blocks of 1 and a resumed run
+draw. Both graphs share one memory pool, so the activations are held once.
+
+Capture needs eager warm-up iterations; they run on a side stream and the
+state they touch (params, moments, count, step, slot, log sums) is copied
+back afterwards, so capture leaves the trainer as it was. On CUDA a failed
+capture or replay raises; nothing runs eagerly in the graphs' place. On the
+CPU there are no graphs, and the same step function runs eagerly.
+
+The caller clips k so that a block never crosses the warm-up decay
+(``max_block``); the decay after a block sets the device lr and zeroes the
+moments and count in place (``Trainer.decay_if_due``), so the graphs keep
+updating the live state. The mesh half (``FusedMeshTrainer``) waits for
+ROADMAP Queue 1, item 14.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Tuple
+
+import numpy as np
+import torch
+
+from .config import ModelSpec, TrainSpec
+from .sampler.device_sampler import DeviceSampler, draw_index
+from .sampler.negative import HEAD_BATCH, TAIL_BATCH
+from .train import Trainer, train_step
+
+# fixed log-key order of the summed log vector a block returns
+_LOG_KEYS = ("loss", "negative_sample_loss", "positive_sample_loss")
+
+
+def _log_keys(tspec: TrainSpec) -> Tuple[str, ...]:
+    return _LOG_KEYS + ("regularization",) if tspec.regularization != 0.0 else _LOG_KEYS
+
+
+def step_mode(step: int) -> str:
+    """Tail-first alternation: even global steps draw tail-batch."""
+    return TAIL_BATCH if step % 2 == 0 else HEAD_BATCH
+
+
+class FusedDeviceTrainer(Trainer):
+    """A ``Trainer`` that also runs fused k-step blocks fed by the device
+    sampler. Single-step semantics (``one_step``, the decay, checkpoints) are
+    inherited; ``run_block(k)`` advances k steps.
+
+    ``block_capacity`` sizes the static index buffer (a larger block grows
+    it and recaptures). ``record_batches`` keeps each block's drawn batches
+    on the device (``recorded``) for comparisons. ``graph_replays`` counts
+    graph replays across all instances."""
+
+    graph_replays = 0
+
+    def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
+                 warm_up_steps: int, train: np.ndarray, seed: int = 0, init_step: int = 0,
+                 negative_sharing: str = "none", block_capacity: int = 16,
+                 record_batches: bool = False):
+        super().__init__(spec, tspec, params, lr=lr, warm_up_steps=warm_up_steps,
+                         init_step=init_step)
+        p = self.params["entity_embedding"]
+        self.device = p.device
+        # the two samplers hold the resident state and the host index
+        # streams (head seed, tail seed + 1, as the per-step iterator)
+        self._head = DeviceSampler(train, spec.nentity, spec.nrelation, tspec.batch_size,
+                                   tspec.negative_sample_size, HEAD_BATCH, seed=seed,
+                                   negative_sharing=negative_sharing, device=self.device)
+        # the weights in the params' dtype: f32 as drawn, except in f64 runs,
+        # where a weight sum in f32 would seed f32 noise into the loss
+        self._head.weights = self._head.weights.to(p.dtype)
+        self._tail = DeviceSampler(train, spec.nentity, spec.nrelation, tspec.batch_size,
+                                   tspec.negative_sample_size, TAIL_BATCH, seed=seed + 1,
+                                   negative_sharing=negative_sharing,
+                                   shared_state=(self._head.triples, self._head.weights),
+                                   device=self.device)
+        self._samplers = {HEAD_BATCH: self._head, TAIL_BATCH: self._tail}
+        self.negative_sharing = negative_sharing
+        self._keys = _log_keys(tspec)
+        self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
+        self._slot = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self._log_sum = torch.zeros(len(self._keys), dtype=p.dtype, device=self.device)
+        self._record = record_batches
+        self._graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
+        self._captured_on: Tuple[torch.Tensor, ...] = ()
+        self._block0 = None  # (first step, k) of the last block
+        self._side = None  # the warm-up and capture stream
+        self._grow(block_capacity)
+
+    def _grow(self, capacity: int) -> None:
+        """Static per-block buffers for ``capacity`` steps."""
+        B, n = self.tspec.batch_size, self.tspec.negative_sample_size
+        self._idx = torch.zeros((capacity, B), dtype=torch.int32, device=self.device)
+        if self._record:
+            self._rec = (torch.zeros((capacity, B, 3), dtype=torch.int32, device=self.device),
+                         torch.zeros((capacity, B, n), dtype=torch.int32, device=self.device),
+                         torch.zeros((capacity, B), dtype=self._head.weights.dtype,
+                                     device=self.device))
+
+    def _step(self, mode: str) -> None:
+        """One fused step of ``mode``: the draw for the global step held on
+        the device, then ``train.train_step``; no host read. The body of
+        each captured graph."""
+        idx = self._idx.index_select(0, self._slot).view(-1)
+        pos, neg, w = self._samplers[mode].sample(idx, draw_index(self._step_t, mode))
+        if self._record:
+            for buf, x in zip(self._rec, (pos, neg, w)):
+                buf.index_copy_(0, self._slot, x.unsqueeze(0))
+        logs = train_step(self.params, self.opt_state, pos, neg, w, self.lr_tensor,
+                          spec=self.spec, tspec=self.tspec, mode=mode)
+        self._log_sum.add_(torch.stack([logs[k] for k in self._keys]).to(self._log_sum.dtype))
+        self._slot.add_(1)
+        self._step_t.add_(1)
+
+    def _state(self) -> List[torch.Tensor]:
+        """Every tensor a step writes, bar the recorded batches."""
+        st = self.opt_state
+        return [*self.params.values(), *st.m.values(), *st.v.values(), st.steps,
+                self._step_t, self._slot, self._log_sum]
+
+    def _graph_inputs(self) -> Tuple[torch.Tensor, ...]:
+        """The tensors the graphs were captured on: a restore that replaces
+        any of them (``checkpoint.restore_trainer``) calls for a new capture."""
+        return (*self._state(), self.lr_tensor, self._idx, *(self._rec if self._record else ()))
+
+    def _capture(self) -> None:
+        """One CUDA graph per mode, in one memory pool, after one eager
+        warm-up step per mode whose writes are undone; warm-up and capture
+        run on one side stream, kept for the trainer's life."""
+        state = self._state()
+        cur = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        side = self._side
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            saved = [t.detach().clone() for t in state]
+            for mode in (TAIL_BATCH, HEAD_BATCH):
+                self._slot.zero_()
+                self._step(mode)
+            with torch.no_grad():
+                for t, s in zip(state, saved):
+                    t.copy_(s)
+        cur.wait_stream(side)
+        del saved
+        pool = torch.cuda.graph_pool_handle()
+        graphs = {}
+        for mode in (TAIL_BATCH, HEAD_BATCH):
+            g = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(g, pool=pool, stream=side):
+                self._step(mode)
+            graphs[mode] = g
+        self._graphs = graphs
+        self._captured_on = self._graph_inputs()
+
+    def _graphs_current(self) -> bool:
+        """Whether graphs were captured on the tensors the trainer holds now."""
+        now = self._graph_inputs()
+        return (len(now) == len(self._captured_on)
+                and all(a is b for a, b in zip(now, self._captured_on)))
+
+    def max_block(self, k: int) -> int:
+        """Largest block from the current step that keeps lr constant: the
+        decay fires after step_idx >= warm_up_steps, so the boundary step
+        itself may close a block but not be crossed."""
+        return max(1, min(k, self.warm_up_steps + 1 - self.step))
+
+    def run_block(self, k: int) -> Dict[str, torch.Tensor]:
+        """Advance k fused steps; returns the SUMMED logs as 0-d device
+        tensors (the caller divides by its window count, exactly like
+        per-step accumulation)."""
+        if k < 1 or k > self.max_block(k):
+            raise ValueError(
+                f"run_block(k={k}) would cross the LR-decay boundary: "
+                f"step={self.step}, warm_up_steps={self.warm_up_steps}; "
+                f"clip with max_block() first")
+        step0 = self.step
+        idx = np.stack([self._samplers[step_mode(step0 + i)]._next_indices()
+                        for i in range(k)])
+        if k > len(self._idx):
+            self._grow(k)
+        cuda = self.device.type == "cuda"
+        if cuda and not self._graphs_current():
+            self._capture()
+        host = torch.from_numpy(idx)
+        if cuda:  # the caching host allocator keeps the pinned block until the copy is done
+            self._idx[:k].copy_(host.pin_memory(), non_blocking=True)
+        else:
+            self._idx[:k].copy_(host)
+        self._slot.zero_()
+        self._step_t.fill_(step0)
+        self._log_sum.zero_()
+        for i in range(k):
+            mode = step_mode(step0 + i)
+            if cuda:
+                self._graphs[mode].replay()
+                FusedDeviceTrainer.graph_replays += 1
+            else:
+                self._step(mode)
+        self.step = step0 + k
+        self._block0 = (step0, k)
+        self.decay_if_due(self.step - 1)
+        return dict(zip(self._keys, self._log_sum.clone()))
+
+    def recorded(self) -> list:
+        """The last block's batches as ``(pos, neg, weight, mode)`` device
+        tensors, in step order (``record_batches=True``)."""
+        if not self._record or self._block0 is None:
+            raise RuntimeError("no recorded block: construct with record_batches=True")
+        step0, k = self._block0
+        return [(*(buf[i].clone() for buf in self._rec), step_mode(step0 + i))
+                for i in range(k)]

@@ -4,13 +4,15 @@ Counterpart of ``knowledgegraphembedding_tpu/optim.py``. The reference uses
 ``torch.optim.Adam`` with default betas and eps on *dense* gradients
 (codes/run.py §main ≈L250): every row's moments decay and every warm row
 moves every step. The LR decay builds a fresh Adam (codes/run.py §main
-≈L300), so moments and the bias-correction count reset; ``init_state`` is
-called again at that boundary.
+≈L300), so moments and the bias-correction count reset; here ``reset_``
+zeroes them in place, so a captured CUDA graph that updates these tensors
+keeps updating the live state.
 
 ``apply_update`` keeps the JAX package's arithmetic order, with the bias
-correction computed in the params' dtype, rather than ``torch.optim.Adam``'s
-``lr/bc1 * m / (sqrt(v)/sqrt(bc2) + eps)``, which rounds differently. It
-updates params and moments in place.
+correction computed on the params' device in their dtype, rather than
+``torch.optim.Adam``'s ``lr/bc1 * m / (sqrt(v)/sqrt(bc2) + eps)``, which
+rounds differently. It updates params, moments and the count in place and
+reads nothing back to the host.
 """
 
 from __future__ import annotations
@@ -28,17 +30,32 @@ EPS = 1e-8  # torch.optim.Adam defaults
 
 @dataclasses.dataclass
 class AdamState:
-    count: int  # steps taken by this optimizer instance
+    steps: torch.Tensor  # i32[] steps taken by this optimizer instance, on the params' device
     m: Dict[str, torch.Tensor]  # first moments, keyed as the params
     v: Dict[str, torch.Tensor]  # second moments
 
+    @property
+    def count(self) -> int:
+        """The step count read to the host (the JAX ``AdamState.count``)."""
+        return int(self.steps)
+
 
 def init_state(params: Mapping[str, torch.Tensor]) -> AdamState:
+    device = next(iter(params.values())).device
     return AdamState(
-        count=0,
+        steps=torch.zeros((), dtype=torch.int32, device=device),
         m={k: torch.zeros_like(p, requires_grad=False) for k, p in params.items()},
         v={k: torch.zeros_like(p, requires_grad=False) for k, p in params.items()},
     )
+
+
+@torch.no_grad()
+def reset_(state: AdamState) -> None:
+    """A fresh optimizer in place: moments and count to zero."""
+    state.steps.zero_()
+    for d in (state.m, state.v):
+        for t in d.values():
+            t.zero_()
 
 
 def state_from_numpy(count, m: Mapping[str, np.ndarray], v: Mapping[str, np.ndarray],
@@ -49,7 +66,8 @@ def state_from_numpy(count, m: Mapping[str, np.ndarray], v: Mapping[str, np.ndar
     def load(d):
         return {k: torch.from_numpy(np.array(a)).to(device) for k, a in d.items()}
 
-    return AdamState(count=int(count), m=load(m), v=load(v))
+    return AdamState(steps=torch.tensor(int(count), dtype=torch.int32, device=device),
+                     m=load(m), v=load(v))
 
 
 @torch.no_grad()
@@ -58,13 +76,15 @@ def apply_update(params: Mapping[str, torch.Tensor], grads: Mapping[str, torch.T
     """One torch-semantics Adam step, in place on ``params`` and ``state``:
     m <- b1 m + (1-b1) g;  v <- b2 v + (1-b2) g^2;
     p <- p - lr * (m / (1-b1^t)) / (sqrt(v / (1-b2^t)) + eps).
-    ``lr`` is a 0-d CPU tensor in the params' dtype."""
-    state.count += 1
+    ``lr`` is a 0-d tensor in the params' dtype on their device."""
+    state.steps.add_(1)
+    corrections = {}  # (bc1, bc2) per dtype, on the device
     for name, p in params.items():
         g, m, v = grads[name], state.m[name], state.v[name]
-        t = torch.tensor(state.count, dtype=p.dtype)
-        bc1 = 1.0 - BETA1 ** t
-        bc2 = 1.0 - BETA2 ** t
+        if p.dtype not in corrections:
+            t = state.steps.to(p.dtype)
+            corrections[p.dtype] = (1.0 - BETA1 ** t, 1.0 - BETA2 ** t)
+        bc1, bc2 = corrections[p.dtype]
         m.mul_(BETA1).add_(g * (1.0 - BETA1))
         v.mul_(BETA2).add_((g * g) * (1.0 - BETA2))
         m_hat = m / bc1

@@ -1,4 +1,5 @@
-"""Host-side negative sampling and the prefetch/upload pipeline."""
+"""Negative sampling: the host samplers with the prefetch/upload pipeline,
+and the device-resident gap sampler (``device_sampler``)."""
 
 from .negative import (  # noqa: F401
     BidirectionalIterator,

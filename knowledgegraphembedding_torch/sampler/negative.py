@@ -245,11 +245,16 @@ def build_train_iterator(train: np.ndarray, nentity: int, nrelation: int,
     """The two samplers of codes/run.py §main (head-batch seeded ``seed``,
     tail-batch ``seed + 1``), alternated, behind a prefetch queue when
     ``prefetch_depth > 0``; ``device`` (CUDA) uploads from that queue.
-    ``backend='device'`` (the device-resident sampler) is not ported."""
+    ``backend='device'`` builds the device-resident sampler
+    (``device_sampler.py``) on ``device`` (the CPU when None), whose
+    lookahead queue holds ``prefetch_depth // 2`` batches (at least one)."""
     if backend == "device":
-        raise NotImplementedError(
-            "--sampler_backend device: the device-resident sampler is not "
-            "ported yet (ROADMAP Queue 1, item 12)")
+        from .device_sampler import build_device_iterator
+
+        return build_device_iterator(
+            train, nentity, nrelation, batch_size, negative_sample_size, seed=seed,
+            depth=max(1, prefetch_depth // 2),
+            device=device if device is not None else torch.device("cpu"))
     head = TrainSampler(train, nentity, nrelation, batch_size, negative_sample_size,
                         HEAD_BATCH, seed=seed, backend=backend)
     tail = TrainSampler(train, nentity, nrelation, batch_size, negative_sample_size,

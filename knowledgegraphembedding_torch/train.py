@@ -4,10 +4,13 @@ Counterpart of ``knowledgegraphembedding_tpu/train.py`` (reference:
 codes/model.py §train_step ≈L267-330, codes/run.py §main ≈L280-340). A step
 is forward (row gathers and scores), the loss, autograd's backward, which
 gives the dense gradients of the gathers as the reference's index_select
-does, and dense Adam in place. The learning rate is a runtime value, and the
-one-shot decay (÷10 at warm_up_steps, a fresh Adam, warm_up×3) happens in
-``Trainer.one_step``. Logs stay on the device; nothing in a step reads a
-device value on the host.
+does, and dense Adam in place. The learning rate is a runtime value held in a
+0-d tensor on the params' device, and the one-shot decay (÷10 at
+warm_up_steps, a fresh Adam, warm_up×3) happens in ``Trainer.one_step``,
+setting that tensor and zeroing the Adam state in place, so the fused
+trainer's captured CUDA graphs (``fused_train.py``) see the live values.
+Logs stay on the device; nothing in a step reads a device value on the
+host.
 
 DistMult and ComplEx score their negatives through one dense matmul against
 the whole entity table where the JAX package does (``use_dense_scoring``,
@@ -69,12 +72,15 @@ def train_step(params: kge.Params, opt_state: optim.AdamState, pos, neg, weight,
                lr: torch.Tensor, *, spec: ModelSpec, tspec: TrainSpec,
                mode: str) -> Dict[str, torch.Tensor]:
     """Loss, gradients and one Adam update of ``params`` and ``opt_state``
-    in place; returns the detached logs. ``params`` are leaf tensors that
-    require grad."""
-    loss, logs = loss_and_logs(params, spec, tspec, pos, neg, weight, mode)
-    names = list(params)
-    grads = torch.autograd.grad(loss, [params[k] for k in names])
-    optim.apply_update(params, dict(zip(names, grads)), opt_state, lr)
+    in place; returns the detached logs. The gradients are taken with
+    respect to fresh leaves that share the params' storage, so no autograd
+    node outlives the step: a leaf's accumulator remembers the CUDA stream
+    it was made on, and one kept from an earlier step on another stream
+    would make a graph capture (``fused_train.py``) wait on that stream."""
+    leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
+    loss, logs = loss_and_logs(leaves, spec, tspec, pos, neg, weight, mode)
+    grads = torch.autograd.grad(loss, list(leaves.values()))
+    optim.apply_update(params, dict(zip(leaves, grads)), opt_state, lr)
     return {k: v.detach() for k, v in logs.items()}
 
 
@@ -103,6 +109,23 @@ class Trainer:
         self.warm_up_steps = warm_up_steps
         self.step = init_step
 
+    @property
+    def current_learning_rate(self) -> float:
+        return self._lr_value
+
+    @current_learning_rate.setter
+    def current_learning_rate(self, value: float) -> None:
+        """The host value, and ``lr_tensor``: the same in the params' dtype
+        on their device (as the JAX trainer passes it), set in place while
+        the params keep their dtype and device."""
+        self._lr_value = value
+        p = self.params["entity_embedding"]
+        lr = getattr(self, "lr_tensor", None)
+        if lr is None or lr.dtype != p.dtype or lr.device != p.device:
+            self.lr_tensor = torch.tensor(value, dtype=p.dtype, device=p.device)
+        else:
+            self.lr_tensor.fill_(value)
+
     @classmethod
     def from_jax_state(cls, spec: ModelSpec, tspec: TrainSpec, params, opt_state,
                        step: int, lr: float, warm_up_steps: int, device) -> "Trainer":
@@ -119,19 +142,19 @@ class Trainer:
     def one_step(self, batch) -> Dict[str, torch.Tensor]:
         pos, neg, weight, mode = batch
         step_idx = self.step
-        # lr in the params' dtype, as the JAX trainer passes it
-        lr = torch.tensor(self.current_learning_rate,
-                          dtype=self.params["entity_embedding"].dtype)
-        logs = train_step(self.params, self.opt_state, pos, neg, weight, lr,
+        logs = train_step(self.params, self.opt_state, pos, neg, weight, self.lr_tensor,
                           spec=self.spec, tspec=self.tspec, mode=mode)
         self.step = step_idx + 1
-        # codes/run.py ≈L300: checked after the step, so step == warm_up_steps
-        # still trains at the old rate; the next one sees lr/10, a fresh Adam
-        # and warm_up_steps*3
+        self.decay_if_due(step_idx)
+        return logs
+
+    def decay_if_due(self, step_idx: int) -> None:
+        """codes/run.py ≈L300: checked after step ``step_idx``, so the step
+        at warm_up_steps still trains at the old rate; the next one sees
+        lr/10, a fresh Adam (zeroed in place) and warm_up_steps*3."""
         if step_idx >= self.warm_up_steps:
             self.current_learning_rate = self.current_learning_rate / 10.0
             logging.info("Change learning_rate to %f at step %d",
                          self.current_learning_rate, step_idx)
-            self.opt_state = optim.init_state(self.params)
+            optim.reset_(self.opt_state)
             self.warm_up_steps = self.warm_up_steps * 3
-        return logs

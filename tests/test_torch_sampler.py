@@ -101,10 +101,25 @@ def test_prefetch_upload_needs_a_cuda_device(kg):
 
 
 def test_device_backend_is_refused(kg):
-    ds, _ = kg
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_neg.build_train_iterator(ds.train, ds.nentity, ds.nrelation, 8, 4,
-                                   backend="device")
+    """Once refused, ``backend='device'`` now builds the device-resident
+    iterator, as the JAX package's does: the same tail-first positives and
+    weights from the same index streams (its draws are tested in
+    tests/test_torch_device_sampler.py)."""
+    from knowledgegraphembedding_torch.sampler.device_sampler import (
+        DeviceBidirectionalIterator)
+
+    ds, filters = kg
+    got = t_neg.build_train_iterator(ds.train, ds.nentity, ds.nrelation, 8, 4, seed=2,
+                                     backend="device")
+    want = j_neg.build_train_iterator(ds.train, ds.nentity, ds.nrelation, 8, 4, filters,
+                                      seed=2, backend="device")
+    assert isinstance(got, DeviceBidirectionalIterator)
+    for _ in range(4):
+        g, w = next(got), next(want)
+        assert g[3] == w[3]
+        np.testing.assert_array_equal(g[0].numpy(), np.asarray(w[0]))
+        np.testing.assert_array_equal(g[2].numpy(), np.asarray(w[2]))
+        assert g[1].shape == (8, 4) and g[1].device.type == "cpu"
 
 
 def test_subsampling_weights_and_counts_equal(kg):
