@@ -4,13 +4,15 @@ codes/run.py §parse_args ≈L27-80, §main ≈L180-360).
 This port trains (``--do_train``: the single-device loop with the host
 sampler or the device-resident sampler, ``--sampler_backend device``, or
 fused blocks of k steps replayed as CUDA graphs, ``--steps_per_dispatch k``;
+``--precision bf16`` and ``--negative_sharing batch`` with any of them;
 periodic saves, log windows and validation) and evaluates (``--do_valid``,
-``--do_test``, ``--evaluate_train``) from a random init or a checkpoint
-(``-init``), all five models: DistMult and ComplEx score and rank through
-dense matmuls, the others through row gathers and the rank kernel. Flags of
-work not ported yet are parsed, so a saved ``config.json`` loads, and
-refused with ``NotImplementedError`` naming the ROADMAP item. It runs on
-CUDA unless ``--platform cpu`` is given.
+``--do_test``, ``--evaluate_train``; AUC-PR over the region candidates
+under ``--countries``) from a random init or a checkpoint (``-init``), all
+five models: DistMult and ComplEx score and rank through dense matmuls, the
+others through row gathers and the rank kernel. Flags of work not ported
+yet (multi-device runs and profiling) are parsed, so a saved
+``config.json`` loads, and refused with ``NotImplementedError`` naming the
+ROADMAP item. It runs on CUDA unless ``--platform cpu`` is given.
 
 Usage:
   python -m knowledgegraphembedding_torch.cli --do_train --do_valid --do_test \
@@ -138,18 +140,11 @@ def resolve_device(config: RunConfig) -> torch.device:
 def refuse_unported(config: RunConfig) -> None:
     """Flags whose work is not ported yet fail loudly, naming the ROADMAP item."""
     refused = (
-        (config.countries, "--countries: AUC-PR evaluation is not ported yet "
-                           "(ROADMAP Queue 1, item 10)"),
         (config.num_shards > 1 or config.model_shards > 1,
          "--num_shards/--model_shards > 1: multi-device schedules are not "
          "ported yet (ROADMAP Queue 1, item 14)"),
         (config.multihost, "--multihost: multi-host runs are not ported yet "
                            "(ROADMAP Queue 1, item 14)"),
-        (config.precision == "bf16", "--precision bf16 is not ported yet "
-                                     "(ROADMAP Queue 1, item 11)"),
-        (config.negative_sharing == "batch", "--negative_sharing batch: shared "
-                                             "negatives are not ported yet "
-                                             "(ROADMAP Queue 1, item 11)"),
         (config.profile_dir is not None, "--profile_dir: profiler traces are "
                                          "not ported yet (ROADMAP Queue 1, item 15)"),
     )
@@ -188,6 +183,8 @@ def main(argv=None) -> dict:
     ds = registry.load(config.data_path, countries=config.countries)
     config.nentity = ds.nentity
     config.nrelation = ds.nrelation
+    if config.countries:
+        config.regions = ds.regions
     config.data_fingerprint = int(zlib.crc32(
         np.ascontiguousarray(ds.train, dtype=np.int32).tobytes()))
     if config.init_checkpoint:
@@ -257,6 +254,10 @@ def main(argv=None) -> dict:
         logging.info("adversarial_temperature = %f", config.adversarial_temperature)
 
     def evaluate(params, triples):
+        """Countries AUC-PR under --countries, else filtered link prediction
+        (codes/model.py §test_step's two branches)."""
+        if config.countries:
+            return {"auc_pr": eval_mod.countries_auc_pr(params, spec, triples, config.regions)}
         return eval_mod.test_step(
             params, spec, triples, filters,
             test_batch_size=config.test_batch_size,
@@ -388,7 +389,8 @@ def _train(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod, log_metri
         prefetch_depth=config.prefetch_depth, backend=backend,
         # on CUDA the prefetch thread uploads batch i+1 under step i; the
         # device sampler draws its batches there
-        device=device if device.type == "cuda" else None)
+        device=device if device.type == "cuda" else None,
+        negative_sharing=config.negative_sharing)
 
     def to_device(x):
         return x if isinstance(x, torch.Tensor) else torch.from_numpy(x).to(device)

@@ -82,8 +82,8 @@ class TrainSpec:
 
     ``scoring`` and ``precision`` are accepted as the JAX package names
     them: ``scoring`` picks dense matmul or row-gather negatives by the
-    JAX package's rule (``train.use_dense_scoring``); only ``f32`` is
-    ported, and ``cli`` refuses ``bf16``."""
+    JAX package's rule (``train.use_dense_scoring``); ``precision`` is
+    ``f32`` or ``bf16`` (bf16 score math on f32 master weights)."""
 
     negative_sample_size: int = 128
     batch_size: int = 1024

@@ -16,7 +16,8 @@ which equals the reference's argsort rank without materializing or sorting a
     instead of building a ``[B, W]`` mask.
 
 Filter masks come from the host CSR (``FilterSets.filter_mask_rows``) or are
-built on the device from a resident CSR (``DeviceFilter``).
+built on the device from a resident CSR (``DeviceFilter``). The countries
+datasets are scored by AUC-PR instead (``countries_auc_pr``).
 """
 
 from __future__ import annotations
@@ -342,3 +343,43 @@ def test_step(params: kge.Params, spec: ModelSpec, test_triples: np.ndarray,
     if not logs:
         return {}
     return {k: float(np.mean([lg[k] for lg in logs])) for k in logs[0]}
+
+
+# ---- countries: AUC-PR over region candidates (codes/model.py ≈L335-355) ----
+
+def average_precision(y_true: np.ndarray, y_score: np.ndarray) -> float:
+    """``sklearn.metrics.average_precision_score`` for binary labels (the
+    reference's only sklearn call), in numpy: AP = sum_n (R_n - R_{n-1}) P_n
+    over the descending-score sweep, ties counted at the last index of each
+    distinct score."""
+    order = np.argsort(-y_score, kind="stable")
+    y = np.asarray(y_true)[order]
+    s = np.asarray(y_score)[order]
+    tp = np.cumsum(y)
+    n_pos = tp[-1]
+    if n_pos == 0:
+        return 0.0
+    precision = tp / np.arange(1, len(y) + 1)
+    recall = tp / n_pos
+    distinct = np.r_[s[1:] != s[:-1], True]
+    precision, recall = precision[distinct], recall[distinct]
+    prev_recall = np.r_[0.0, recall[:-1]]
+    return float(np.sum((recall - prev_recall) * precision))
+
+
+@torch.no_grad()
+def countries_auc_pr(params: kge.Params, spec: ModelSpec, test_triples: np.ndarray,
+                     regions: Sequence[int], batch_size: int = 1024) -> float:
+    """One pooled AP over every (test triple, candidate region): the triple
+    (head, relation, region) scored in ``single`` mode on the params' device,
+    labelled 1 where the region is the triple's tail."""
+    triples = np.asarray(test_triples, np.int64)
+    reg = np.asarray(regions, np.int64)
+    samples = np.repeat(triples, len(reg), axis=0)
+    samples[:, 2] = np.tile(reg, len(triples))
+    y_true = (samples[:, 2] == np.repeat(triples[:, 2], len(reg))).astype(np.int64)
+    device = params["entity_embedding"].device
+    scores = [kge.forward(params, spec, torch.from_numpy(samples[i:i + batch_size]).to(device),
+                          scorers.SINGLE)[:, 0].cpu()
+              for i in range(0, len(samples), batch_size)]
+    return average_precision(y_true, torch.cat(scores).numpy())

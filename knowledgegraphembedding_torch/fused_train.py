@@ -14,7 +14,9 @@ place and the log sums added into a device buffer. A block then
   - replays the tail and head graphs in the JAX order (tail at even global
     steps), each replay reading its row of the buffer through a device slot
     counter and advancing the device step counter itself;
-  - reads nothing back: the summed logs stay on the device.
+  - reads nothing back: the summed logs stay on the device;
+  - bumps the autograd version of what the replays wrote, which a replay
+    does not, so caches keyed on it see the new weights.
 
 So the host does O(1) work a step. The draw index of step s comes from the
 global step (``device_sampler.draw_index``, the rule of JAX's
@@ -107,11 +109,13 @@ class FusedDeviceTrainer(Trainer):
 
     def _grow(self, capacity: int) -> None:
         """Static per-block buffers for ``capacity`` steps."""
-        B, n = self.tspec.batch_size, self.tspec.negative_sample_size
+        B = self.tspec.batch_size
+        neg_shape = tuple(self._head.counter.shape)  # [B, n], or [1, n] when shared
         self._idx = torch.zeros((capacity, B), dtype=torch.int32, device=self.device)
         if self._record:
             self._rec = (torch.zeros((capacity, B, 3), dtype=torch.int32, device=self.device),
-                         torch.zeros((capacity, B, n), dtype=torch.int32, device=self.device),
+                         torch.zeros((capacity, *neg_shape), dtype=torch.int32,
+                                     device=self.device),
                          torch.zeros((capacity, B), dtype=self._head.weights.dtype,
                                      device=self.device))
 
@@ -135,6 +139,16 @@ class FusedDeviceTrainer(Trainer):
         st = self.opt_state
         return [*self.params.values(), *st.m.values(), *st.v.values(), st.steps,
                 self._step_t, self._slot, self._log_sum]
+
+    def _mark_written(self) -> None:
+        """Bump the autograd version of every tensor a step writes. A graph
+        replay writes them without passing through the dispatcher, so their
+        ``_version`` would not move, and a cache keyed on it
+        (``rank_kernel.get_ranker``, whose pRotatE ranker holds a sin | cos
+        table of the weights) would go on serving the weights of before the
+        block. The eager steps of the CPU bump it themselves."""
+        for t in self._state():
+            torch.autograd.graph.increment_version(t)
 
     def _graph_inputs(self) -> Tuple[torch.Tensor, ...]:
         """The tensors the graphs were captured on: a restore that replaces
@@ -215,6 +229,7 @@ class FusedDeviceTrainer(Trainer):
                 FusedDeviceTrainer.graph_replays += 1
             else:
                 self._step(mode)
+        self._mark_written()
         self.step = step0 + k
         self._block0 = (step0, k)
         self.decay_if_due(self.step - 1)

@@ -53,7 +53,8 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], device) -> Params:
 
 
 def forward(params: Params, spec: ModelSpec, sample,
-            mode: str = scorers.SINGLE) -> torch.Tensor:
+            mode: str = scorers.SINGLE,
+            compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """Mode-dependent gather + score (codes/model.py §KGEModel.forward).
 
     - ``single``:     sample = i64[B, 3]                      -> [B, 1]
@@ -61,9 +62,21 @@ def forward(params: Params, spec: ModelSpec, sample,
       (negatives replace the head)
     - ``tail-batch``: sample = (pos i64[B, 3], neg i64[B, n]) -> [B, n]
       (negatives replace the tail)
+
+    ``neg`` may also be one shared row ``[1, n]`` (``--negative_sharing
+    batch``): its ``[1, n, de]`` rows broadcast against the ``[B, 1, ·]``
+    rows of the positives. ``compute_dtype=torch.bfloat16`` casts both tables
+    once and gathers from the casts, as the JAX package does: the score math
+    runs in bf16, the scorers reduce in f32, the scores are f32, and the
+    gather's backward sums duplicate rows into a bf16 gradient (on the CPU
+    one bf16 add at a time; on the card in f32, rounded once) before the
+    cast's backward brings it to the tables' dtype.
     """
     ent = params["entity_embedding"]
     rel = params["relation_embedding"]
+    if compute_dtype is not None and ent.dtype != compute_dtype:
+        ent = ent.to(compute_dtype)
+        rel = rel.to(compute_dtype)
     if mode == scorers.SINGLE:
         pos = sample
         h = ent[pos[:, 0]][:, None, :]

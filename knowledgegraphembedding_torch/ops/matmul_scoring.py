@@ -16,7 +16,8 @@ The product is an ordinary ``torch.matmul`` (cuBLAS on the card), as the JAX
 package left it to XLA: no hand kernel. f32 runs in full f32, never TF32,
 mirroring the JAX package's ``Precision.HIGHEST``: the functions here raise
 if the process has lowered the f32 matmul precision, rather than trusting a
-default. The compute dtype follows the params (f64 parity runs stay f64).
+default. The compute dtype follows the params (f64 parity runs stay f64),
+unless ``--precision bf16`` asks for bf16 operands with f32 results.
 """
 
 from __future__ import annotations
@@ -81,24 +82,36 @@ def check_full_precision(dtype: torch.dtype) -> None:
 def dense_scores_all(spec: ModelSpec, params, pos: torch.Tensor, mode: str,
                      compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
     """[B, E] scores of every entity as the corrupted slot of ``pos`` [B, 3],
-    in ``compute_dtype`` (default: the params' dtype; f32 or f64)."""
+    in ``compute_dtype`` (default: the params' dtype; f32 or f64).
+
+    ``torch.bfloat16``: the JAX package's bf16 product with f32 results, the
+    sums of products of bf16-rounded operands. The operands are rounded to
+    bf16 and multiplied back in full f32: a product of two bf16 values is
+    exact in f32, so this is that function, where a bf16 ``matmul`` would
+    round every score to 8 bits. The gradient reaches each operand rounded
+    to bf16, as the JAX product's transpose gives it."""
     ent = params["entity_embedding"]
     dtype = compute_dtype or ent.dtype
-    if dtype not in (torch.float32, torch.float64):
-        raise NotImplementedError(
-            f"dense scoring in {dtype} is not ported yet (ROADMAP Queue 1, item 11)")
-    check_full_precision(dtype)
+    if dtype not in (torch.float32, torch.float64, torch.bfloat16):
+        raise ValueError(f"dense scoring in {dtype}: f32, f64 or bf16")
     pos = pos.to(torch.int64)
     rel = params["relation_embedding"][pos[:, 1]]
     fixed = ent[pos[:, 2] if mode == HEAD_BATCH else pos[:, 0]]
-    left = phi_for_mode(spec.model_name, fixed, rel, mode)
-    return torch.matmul(left.to(dtype), ent.t().to(dtype))
+    left, right = phi_for_mode(spec.model_name, fixed, rel, mode), ent.t()
+    if dtype == torch.bfloat16:
+        left, right = (x.to(dtype).to(torch.float32) for x in (left, right))
+        dtype = torch.float32
+    check_full_precision(dtype)
+    return torch.matmul(left.to(dtype), right.to(dtype))
 
 
 def dense_negative_scores(spec: ModelSpec, params, pos: torch.Tensor, neg: torch.Tensor,
                           mode: str, compute_dtype: Optional[torch.dtype] = None
                           ) -> torch.Tensor:
     """[B, n]: the gather path's ``forward(..., mode)`` scores, through one
-    [B, E] product and a gather along the entity axis."""
+    [B, E] product and a gather along the entity axis. A shared ``neg``
+    [1, n] is expanded to every row (``torch.gather`` does not broadcast,
+    where JAX's ``take_along_axis`` does)."""
     all_scores = dense_scores_all(spec, params, pos, mode, compute_dtype)
-    return torch.gather(all_scores, 1, neg.to(torch.int64))
+    neg = neg.to(torch.int64)
+    return torch.gather(all_scores, 1, neg.expand(all_scores.shape[0], neg.shape[1]))

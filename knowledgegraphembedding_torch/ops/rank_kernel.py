@@ -484,7 +484,9 @@ class Ranker:
 # An evaluation ranks many batches against one parameter set, and a run
 # evaluates the same weights more than once (valid, then test). Keep the last
 # two rankers, keyed on each parameter's identity and version: training
-# updates the tables in place, which bumps ``_version``, so a ranker (and
+# updates the tables in place, which bumps ``_version`` (a CUDA graph replay
+# does not; ``FusedDeviceTrainer.run_block`` bumps it after its replays, and
+# any other write that bypasses the dispatcher must too), so a ranker (and
 # pRotatE's sin/cos table) built from older weights is never used again. An
 # entry whose tables have moved is dropped at the next lookup; each entry
 # holds its params, so an id cannot be reused while the entry lives.

@@ -37,8 +37,10 @@ generator written in int64 torch ops, so it
   function; its 63 bits are reduced by the modulus ``E - c_b``, a relative
   bias below ``(E - c_b) / 2^63``, under 2^-40 for any E below 2^23.
 
-The mesh sampler (``MeshDeviceSampler``) waits for ROADMAP Queue 1, item
-14; shared negatives (``--negative_sharing batch``) for item 11.
+Shared negatives (``--negative_sharing batch``) build no CSR: a batch draws
+one unfiltered ``[1, n]`` row, the same generator's bits for (seed, mode,
+draw index, slot) reduced by the modulus E. The mesh sampler
+(``MeshDeviceSampler``) waits for ROADMAP Queue 1, item 14.
 """
 
 from __future__ import annotations
@@ -139,10 +141,15 @@ def sample_batch(triples: torch.Tensor, weights: torch.Tensor, csr, k_max: int,
                  keys: Sequence[int], draw: torch.Tensor, counter: torch.Tensor,
                  idx_row: torch.Tensor, mode: str, *, nentity: int, nrelation: int):
     """THE device-side batch draw: positives and weights by epoch index,
-    then gap-sampled negatives ([B, n] with n = counter's width). One
-    implementation shared by ``DeviceSampler`` and the fused train step."""
+    then gap-sampled negatives ([B, n] with n = counter's width), or, with
+    no ``csr`` (shared negatives), one uniform row on [0, E) of the
+    counter's shape [1, n]. One implementation shared by ``DeviceSampler``
+    and the fused train step."""
     pos = triples.index_select(0, idx_row)  # [B, 3]
     weight = weights.index_select(0, idx_row)  # [B]
+    if csr is None:
+        neg = torch.remainder(uniform_bits(counter, draw, keys), nentity).to(torch.int32)
+        return pos, neg, weight
     if mode == TAIL_BATCH:
         qk = pos[:, 0].long() * nrelation + pos[:, 1]
     else:
@@ -255,7 +262,9 @@ class DeviceSampler:
 
     The host keeps only the epoch permutation stream; positives, weights and
     negatives are drawn on ``device`` from resident state. ``draws`` counts
-    this sampler's draws on the device; the k-th draw uses draw index k."""
+    this sampler's draws on the device; the k-th draw uses draw index k.
+    With ``negative_sharing='batch'`` it holds no CSR (``csr`` is None) and
+    draws one shared ``[1, n]`` row a batch."""
 
     def __init__(self, triples: np.ndarray, nentity: int, nrelation: int, batch_size: int,
                  negative_sample_size: int, mode: str, seed: int = 0,
@@ -263,9 +272,9 @@ class DeviceSampler:
                  device="cpu"):
         if mode not in (HEAD_BATCH, TAIL_BATCH):
             raise ValueError(f"mode must be {HEAD_BATCH!r} or {TAIL_BATCH!r}, got {mode!r}")
-        if negative_sharing == "batch":
-            raise NotImplementedError("--negative_sharing batch: shared negatives are not "
-                                      "ported yet (ROADMAP Queue 1, item 11)")
+        if negative_sharing not in ("none", "batch"):
+            raise ValueError(f"negative_sharing must be 'none' or 'batch', "
+                             f"got {negative_sharing!r}")
         triples = np.asarray(triples, np.int32)
         if len(triples) == 0:
             raise ValueError("empty train split — nothing to sample")
@@ -286,11 +295,13 @@ class DeviceSampler:
         else:
             self.triples = torch.from_numpy(triples).to(self.device)
             self.weights = torch.from_numpy(subsampling_weights(triples, nrelation)).to(self.device)
-        self.csr = _DeviceCSR.from_arrays(*build_mode_csr(triples, nentity, nrelation, mode),
-                                          device=self.device)
+        shared = negative_sharing == "batch"
+        self.csr = None if shared else _DeviceCSR.from_arrays(
+            *build_mode_csr(triples, nentity, nrelation, mode), device=self.device)
         self.keys = round_keys(seed, mode)
-        self.counter = torch.arange(batch_size * self.n, dtype=torch.int64,
-                                    device=self.device).view(batch_size, self.n)
+        rows = 1 if shared else batch_size
+        self.counter = torch.arange(rows * self.n, dtype=torch.int64,
+                                    device=self.device).view(rows, self.n)
         self.draws = torch.zeros((), dtype=torch.int64, device=self.device)
         self._stream = _EpochIndexStream(self.n_train, index_subset, seed, batch_size)
 
@@ -300,9 +311,10 @@ class DeviceSampler:
     def sample(self, idx_row: torch.Tensor, draw: torch.Tensor):
         """(pos, neg, weight) for epoch indices ``idx_row`` [B] at draw index
         ``draw`` (0-d int64), both on the device."""
-        return sample_batch(self.triples, self.weights, self.csr.arrays(), self.csr.k_max,
-                            self.keys, draw, self.counter, idx_row, self.mode,
-                            nentity=self.nentity, nrelation=self.nrelation)
+        csr, k_max = (None, 0) if self.csr is None else (self.csr.arrays(), self.csr.k_max)
+        return sample_batch(self.triples, self.weights, csr, k_max, self.keys, draw,
+                            self.counter, idx_row, self.mode, nentity=self.nentity,
+                            nrelation=self.nrelation)
 
     def next_batch(self):
         self.draws.add_(1)

@@ -37,15 +37,24 @@ class TrainSampler:
     ``one_shot_iterator``: a fresh permutation of the train split every
     epoch, the last short batch of an epoch topped up from the next one so
     shapes stay fixed. ``backend``: 'auto' uses the native library when it
-    builds and numpy otherwise; 'native' raises when it cannot build."""
+    builds and numpy otherwise; 'native' raises when it cannot build.
+
+    ``negative_sharing='batch'``: one uniform, unfiltered ``[1, n]`` draw a
+    batch, shared by every positive (PBG-style; the false-negative rate is
+    the average true-set size over E), drawn from the same generator after
+    the batch's epoch indices, as the JAX package draws it."""
 
     def __init__(self, triples: np.ndarray, nentity: int, nrelation: int,
                  batch_size: int, negative_sample_size: int, mode: str,
-                 seed: int = 0, backend: str = "auto"):
+                 seed: int = 0, backend: str = "auto", negative_sharing: str = "none"):
         if mode not in (HEAD_BATCH, TAIL_BATCH):
             raise ValueError(f"mode must be {HEAD_BATCH!r} or {TAIL_BATCH!r}, got {mode!r}")
         if backend not in ("auto", "native", "numpy"):
             raise ValueError(f"backend must be 'auto', 'native' or 'numpy', got {backend!r}")
+        if negative_sharing not in ("none", "batch"):
+            raise ValueError(f"negative_sharing must be 'none' or 'batch', "
+                             f"got {negative_sharing!r}")
+        self.negative_sharing = negative_sharing
         if len(triples) == 0:
             raise ValueError("empty train split — nothing to sample")
         if backend == "numpy":
@@ -93,7 +102,11 @@ class TrainSampler:
     def next_batch(self) -> Batch:
         idx = self._next_indices()
         pos = self.triples[idx]
-        return pos, self._sample_negatives_batch(pos), self.weights[idx], self.mode
+        if self.negative_sharing == "batch":
+            neg = self.rng.integers(0, self.nentity, size=(1, self.n)).astype(np.int32)
+        else:
+            neg = self._sample_negatives_batch(pos)
+        return pos, neg, self.weights[idx], self.mode
 
     def _row_keys(self, pos: np.ndarray) -> np.ndarray:
         h = pos[:, 0].astype(np.int64)
@@ -241,24 +254,28 @@ class PrefetchIterator:
 def build_train_iterator(train: np.ndarray, nentity: int, nrelation: int,
                          batch_size: int, negative_sample_size: int, seed: int = 0,
                          prefetch_depth: int = 4, backend: str = "auto",
-                         device: Optional[torch.device] = None):
+                         device: Optional[torch.device] = None,
+                         negative_sharing: str = "none"):
     """The two samplers of codes/run.py §main (head-batch seeded ``seed``,
     tail-batch ``seed + 1``), alternated, behind a prefetch queue when
     ``prefetch_depth > 0``; ``device`` (CUDA) uploads from that queue.
     ``backend='device'`` builds the device-resident sampler
     (``device_sampler.py``) on ``device`` (the CPU when None), whose
-    lookahead queue holds ``prefetch_depth // 2`` batches (at least one)."""
+    lookahead queue holds ``prefetch_depth // 2`` batches (at least one).
+    ``negative_sharing='batch'`` draws one shared ``[1, n]`` row a batch."""
     if backend == "device":
         from .device_sampler import build_device_iterator
 
         return build_device_iterator(
             train, nentity, nrelation, batch_size, negative_sample_size, seed=seed,
-            depth=max(1, prefetch_depth // 2),
+            negative_sharing=negative_sharing, depth=max(1, prefetch_depth // 2),
             device=device if device is not None else torch.device("cpu"))
     head = TrainSampler(train, nentity, nrelation, batch_size, negative_sample_size,
-                        HEAD_BATCH, seed=seed, backend=backend)
+                        HEAD_BATCH, seed=seed, backend=backend,
+                        negative_sharing=negative_sharing)
     tail = TrainSampler(train, nentity, nrelation, batch_size, negative_sample_size,
-                        TAIL_BATCH, seed=seed + 1, backend=backend)
+                        TAIL_BATCH, seed=seed + 1, backend=backend,
+                        negative_sharing=negative_sharing)
     it = BidirectionalIterator(head, tail)
     if prefetch_depth > 0:
         return PrefetchIterator(it, depth=prefetch_depth, device=device)

@@ -14,8 +14,10 @@ host.
 
 DistMult and ComplEx score their negatives through one dense matmul against
 the whole entity table where the JAX package does (``use_dense_scoring``,
-``ops/matmul_scoring.py``); the other models gather rows. bf16 and shared
-negatives (ROADMAP Queue 1, item 11) are not ported.
+``ops/matmul_scoring.py``); the other models gather rows. ``--precision
+bf16`` computes the scores from bf16 casts of the f32 tables (f32 sums, f32
+scores, gradients into the f32 masters); ``--negative_sharing batch`` scores
+one shared ``[1, n]`` negative row against the whole batch.
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ import logging
 from typing import Dict, Mapping, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import optim
 from .config import ModelSpec, TrainSpec
@@ -52,13 +55,25 @@ def use_dense_scoring(spec: ModelSpec, tspec: TrainSpec) -> bool:
 def loss_and_logs(params: kge.Params, spec: ModelSpec, tspec: TrainSpec,
                   pos: torch.Tensor, neg: torch.Tensor, weight: torch.Tensor,
                   mode: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The loss of one batch: pos [B, 3], neg [B, n], weight [B]."""
+    """The loss of one batch: pos [B, 3], neg [B, n] (or one shared row
+    [1, n]), weight [B]."""
+    compute_dtype = torch.bfloat16 if tspec.precision == "bf16" else None
     if use_dense_scoring(spec, tspec):
-        # in the params' dtype, as the JAX package computes it
-        negative_score = matmul_scoring.dense_negative_scores(spec, params, pos, neg, mode)
+        # in the params' dtype unless bf16 is asked for, as the JAX package
+        negative_score = matmul_scoring.dense_negative_scores(spec, params, pos, neg, mode,
+                                                              compute_dtype)
+    elif neg.shape[0] == 1 and pos.shape[0] > 1:
+        # shared negatives: the backward recomputes the negative forward
+        # rather than keep its [B, n, d] intermediates, as the JAX package's
+        # jax.checkpoint does (the recompute gathers only n rows). No RNG is
+        # drawn in the forward, and reading the generator's state is not
+        # allowed inside a CUDA graph capture, so none is saved.
+        negative_score = checkpoint(
+            lambda p: kge.forward(p, spec, (pos, neg), mode, compute_dtype), params,
+            use_reentrant=False, preserve_rng_state=False)
     else:
-        negative_score = kge.forward(params, spec, (pos, neg), mode)
-    positive_score = kge.forward(params, spec, pos, scorers.SINGLE)
+        negative_score = kge.forward(params, spec, (pos, neg), mode, compute_dtype)
+    positive_score = kge.forward(params, spec, pos, scorers.SINGLE, compute_dtype)
     loss, logs = loss_ops.kge_loss(positive_score, negative_score, weight, tspec)
     if tspec.regularization != 0.0:
         reg = loss_ops.l3_regularization(params, tspec.regularization)
@@ -97,9 +112,6 @@ class Trainer:
 
     def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
                  warm_up_steps: int, init_step: int = 0):
-        if tspec.precision != "f32":
-            raise NotImplementedError(
-                f"--precision {tspec.precision} is not ported yet (ROADMAP Queue 1, item 11)")
         self.dense = use_dense_scoring(spec, tspec)  # raises for dense on a non-bilinear model
         self.spec = spec
         self.tspec = tspec

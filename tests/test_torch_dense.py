@@ -322,9 +322,17 @@ def test_full_precision_is_enforced():
         t_ms.dense_scores_all(tspec, _t(p64), torch.from_numpy(pos), "tail-batch")
     finally:
         torch.set_float32_matmul_precision(before)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_ms.dense_scores_all(tspec, _t(p), torch.from_numpy(pos), "tail-batch",
-                              compute_dtype=torch.bfloat16)
+    # bf16 operands (once refused) multiply in full f32 too: the guard holds
+    torch.set_float32_matmul_precision("high")
+    try:
+        with pytest.raises(RuntimeError, match="full-f32"):
+            t_ms.dense_scores_all(tspec, _t(p), torch.from_numpy(pos), "tail-batch",
+                                  compute_dtype=torch.bfloat16)
+    finally:
+        torch.set_float32_matmul_precision(before)
+    got = t_ms.dense_scores_all(tspec, _t(p), torch.from_numpy(pos), "tail-batch",
+                                compute_dtype=torch.bfloat16)
+    assert got.dtype == torch.float32
 
 
 def _windows(save_dir):

@@ -338,11 +338,6 @@ def test_int32_key_guard():
             mod.DeviceSampler(train, 2**17, 2**15, 4, 4, "tail-batch")
 
 
-def test_shared_negatives_stay_refused():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_ds.DeviceSampler(_graph(), 60, 4, 8, 4, "tail-batch", negative_sharing="batch")
-
-
 def test_build_train_iterator_device_backend():
     it = t_neg.build_train_iterator(_graph(), 60, 4, 8, 4, seed=1, prefetch_depth=6,
                                     backend="device")

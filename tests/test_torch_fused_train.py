@@ -70,13 +70,17 @@ def _fused(ds, spec, tspec, p, **kw):
                               train=ds.train, **kw)
 
 
-@pytest.mark.parametrize("start", [0, 1], ids=["even", "odd"])
-def test_block_equals_singles_bit_for_bit(kg, start):
+@pytest.mark.parametrize("start,sharing", [(0, "none"), (1, "none"), (0, "batch"),
+                                           (1, "batch")],
+                         ids=["even", "odd", "even-shared", "odd-shared"])
+def test_block_equals_singles_bit_for_bit(kg, start, sharing):
     """run_block(8) == 8 x run_block(1) from the same state, starting on a
-    tail (even) or a head (odd) step: params, moments, count and the summed
-    logs are equal bit for bit (one step function, one order of ops)."""
+    tail (even) or a head (odd) step, with per-positive or shared negatives
+    (as tests/test_fused_train.py::test_block_equals_singles): params,
+    moments, count and the summed logs are equal bit for bit (one step
+    function, one order of ops)."""
     spec, tspec, p = _setup(kg)
-    a, b = _fused(kg, spec, tspec, p), _fused(kg, spec, tspec, p)
+    a, b = (_fused(kg, spec, tspec, p, negative_sharing=sharing) for _ in range(2))
     for tr in (a, b)[:2 * start]:
         tr.run_block(1)
     logs_a = a.run_block(8)
@@ -93,6 +97,37 @@ def test_block_equals_singles_bit_for_bit(kg, start):
     assert set(logs_a) == {"loss", "negative_sample_loss", "positive_sample_loss"}
     for k in logs_a:
         assert torch.equal(logs_a[k], sums[k]), k
+
+
+def test_run_block_bumps_versions_for_the_ranker_cache(kg, monkeypatch):
+    """A CUDA graph replay writes the params without moving their autograd
+    version. Here the step is replaced by a write through ``.data``, which
+    leaves the version alone as a replay does. Without run_block's hook the
+    ranker cache serves the pRotatE sin | cos table of before the block;
+    with it, a fresh table equal to a new Ranker's."""
+    from knowledgegraphembedding_torch.ops import rank_kernel
+
+    spec = TSpec(nentity=kg.nentity, nrelation=kg.nrelation, model_name="pRotatE",
+                 hidden_dim=16, gamma=6.0)
+    params = t_kge.init_params(spec, torch.Generator().manual_seed(0), device="cpu")
+    tr = FusedDeviceTrainer(spec, TTrainSpec(**TSPEC), params, lr=1e-2, warm_up_steps=10**9,
+                            train=kg.train, seed=3)
+    monkeypatch.setattr(tr, "_step", lambda mode: tr.params["entity_embedding"].data.add_(0.25))
+    stale = rank_kernel.get_ranker(tr.params, spec)
+    table = stale.table.clone()
+    version = tr.params["entity_embedding"]._version
+    with monkeypatch.context() as m:
+        m.setattr(tr, "_mark_written", lambda: None)
+        tr.run_block(2)
+    assert tr.params["entity_embedding"]._version == version
+    assert rank_kernel.get_ranker(tr.params, spec) is stale  # the fault, without the hook
+    assert torch.equal(stale.table, table)
+    tr.run_block(2)
+    assert tr.params["entity_embedding"]._version > version
+    fresh = rank_kernel.get_ranker(tr.params, spec)
+    assert fresh is not stale
+    assert torch.equal(fresh.table, rank_kernel.Ranker(tr.params, spec).table)
+    assert not torch.equal(fresh.table, table)
 
 
 def test_decay_fires_after_block_at_boundary_as_jax(kg):
@@ -132,21 +167,30 @@ def _x64():
         jax.config.update("jax_enable_x64", False)
 
 
-@pytest.mark.parametrize("model,de,reg", [("RotatE", True, 0.0), ("ComplEx", True, 1e-4)])
-def test_block_batches_fed_to_jax_trainer_match_across_decay(kg, model, de, reg):
+@pytest.mark.parametrize("model,de,reg,sharing", [("RotatE", True, 0.0, "none"),
+                                                 ("ComplEx", True, 1e-4, "none"),
+                                                 ("RotatE", True, 0.0, "batch"),
+                                                 ("ComplEx", True, 1e-4, "batch")],
+                         ids=["RotatE-True-0.0", "ComplEx-True-0.0001", "RotatE-shared",
+                              "ComplEx-shared"])
+def test_block_batches_fed_to_jax_trainer_match_across_decay(kg, model, de, reg, sharing):
     """The fused blocks (clipped at the decay, warm-up 5, 14 steps) and the
     JAX Trainer's one_step fed the batches those blocks drew: the same
-    trajectory at f64 within 1e-9 and the same schedule."""
+    trajectory at f64 within 1e-9 and the same schedule. With shared
+    negatives the blocks draw [1, n] rows, and JAX's step recomputes (gather)
+    or broadcasts (dense) them as the port's does."""
     spec_kw = dict(model_name=model, double_entity_embedding=de,
                    double_relation_embedding=model == "ComplEx")
     spec, _, p = _setup(kg, np.float64, **spec_kw)
     tspec = TTrainSpec(regularization=reg, **TSPEC)
-    tr = _fused(kg, spec, tspec, p, warm_up_steps=5, record_batches=True)
+    tr = _fused(kg, spec, tspec, p, warm_up_steps=5, record_batches=True,
+                negative_sharing=sharing)
     batches = []
     while tr.step < 14:
         tr.run_block(tr.max_block(min(6, 14 - tr.step)))
         batches += tr.recorded()
     assert tr.warm_up_steps == 15
+    assert batches[0][1].shape == ((1, 8) if sharing == "batch" else (32, 8))
     jspec = JSpec(nentity=kg.nentity, nrelation=kg.nrelation, hidden_dim=16, gamma=6.0,
                   **spec_kw)
     with _x64():
@@ -188,7 +232,10 @@ FLOW = ["--model", "RotatE", "-de", "-n", "8", "-b", "32", "-d", "8", "-g", "4.0
         "-lr", "0.01", "--max_steps", "60", "--log_steps", "20", "--warm_up_steps", "30",
         "--save_checkpoint_steps", "25", "--test_batch_size", "4"]
 FLOWS = {"fused": ["--steps_per_dispatch", "8"],
-         "device": ["--sampler_backend", "device"]}
+         "device": ["--sampler_backend", "device"],
+         # the max-throughput stack: fused blocks, shared negatives, bf16
+         "fused-shared-bf16": ["--steps_per_dispatch", "8", "--negative_sharing", "batch",
+                               "--precision", "bf16"]}
 
 
 @pytest.fixture(scope="module")
@@ -231,7 +278,7 @@ def test_cli_flow_logs_events_at_the_jax_steps(flows, flow):
     assert td == jd == ["Change learning_rate to 0.001000 at step 30"]
     assert all(np.isfinite(loss)) and loss[0] > loss[-1], loss
     assert "sampler backend: device" in log
-    assert ("fused training: 8 steps per dispatch" in log) == (flow == "fused")
+    assert ("fused training: 8 steps per dispatch" in log) == flow.startswith("fused")
     assert 0 < got["test"]["MRR"] <= 1
 
 

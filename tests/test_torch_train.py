@@ -207,7 +207,7 @@ def test_trainer_seeded_from_jax_state_continues_identically(stream):
 
 
 def test_trainer_owns_its_params_and_refuses_unported_modes(stream):
-    ds, _ = stream
+    ds, batches = stream
     jspec, tspec, _, tts = _specs(ds, *MODELS[0])
     p = t_kge.params_from_numpy(_params(jspec, np.float32), "cpu")
     tt = t_train.Trainer(tspec, tts, p, lr=0.01, warm_up_steps=5)
@@ -218,5 +218,9 @@ def test_trainer_owns_its_params_and_refuses_unported_modes(stream):
         t_train.Trainer(tspec, TTrainSpec(scoring="dense"), p, lr=0.01, warm_up_steps=5)
     with pytest.raises(ValueError, match="TransE has no dense bilinear form"):
         j_train.use_dense_scoring(jspec, JTrainSpec(scoring="dense"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        t_train.Trainer(tspec, TTrainSpec(precision="bf16"), p, lr=0.01, warm_up_steps=5)
+    # bf16 (once refused) builds and steps, the params staying f32 masters
+    bf16 = t_train.Trainer(tspec, TTrainSpec(precision="bf16", negative_sample_size=8,
+                                             batch_size=16), p, lr=0.01, warm_up_steps=5)
+    pos, neg, w, mode = _t_batch(batches[0], np.float32)
+    assert np.isfinite(float(bf16.one_step((pos, neg, w, mode))["loss"]))
+    assert all(v.dtype == torch.float32 for v in bf16.params.values())
