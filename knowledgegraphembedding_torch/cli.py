@@ -9,10 +9,13 @@ periodic saves, log windows and validation) and evaluates (``--do_valid``,
 ``--do_test``, ``--evaluate_train``; AUC-PR over the region candidates
 under ``--countries``) from a random init or a checkpoint (``-init``), all
 five models: DistMult and ComplEx score and rank through dense matmuls, the
-others through row gathers and the rank kernel. Flags of work not ported
-yet (multi-device runs and profiling) are parsed, so a saved
-``config.json`` loads, and refused with ``NotImplementedError`` naming the
-ROADMAP item. It runs on CUDA unless ``--platform cpu`` is given.
+others through row gathers and the rank kernel. Periodic saves are
+asynchronous unless ``--no-async_checkpoint`` is given, the final save is
+synchronous, and ``--profile_dir`` traces the training loop with
+torch.profiler. Flags of work not ported yet (multi-device runs) are
+parsed, so a saved ``config.json`` loads, and refused with
+``NotImplementedError`` naming the ROADMAP item. It runs on CUDA unless
+``--platform cpu`` is given.
 
 Usage:
   python -m knowledgegraphembedding_torch.cli --do_train --do_valid --do_test \
@@ -37,6 +40,7 @@ import numpy as np
 import torch
 
 from .config import RunConfig
+from .utils import profiling
 
 
 def parse_args(argv=None) -> RunConfig:
@@ -145,8 +149,6 @@ def refuse_unported(config: RunConfig) -> None:
          "ported yet (ROADMAP Queue 1, item 14)"),
         (config.multihost, "--multihost: multi-host runs are not ported yet "
                            "(ROADMAP Queue 1, item 14)"),
-        (config.profile_dir is not None, "--profile_dir: profiler traces are "
-                                         "not ported yet (ROADMAP Queue 1, item 15)"),
     )
     for cond, msg in refused:
         if cond:
@@ -359,19 +361,27 @@ def _auto_sampler_backend(config: RunConfig, ds, spec, tspec) -> str:
 def _train(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod, log_metrics) -> None:
     """The train loop of codes/run.py §main ≈L280-340: events fire on
     ``(step + 1) % N`` (save, then log, then validation), and a final save
-    follows. Per-step logs are summed on the device; each log window reads
-    them to the host once. ``--steps_per_dispatch > 1`` runs fused blocks
-    (``_run_fused_training``); otherwise one step at a time, on batches of
-    the host sampler or the device sampler."""
-    from . import native as native_mod
-    from .sampler import build_train_iterator
-
+    follows, synchronous, after any periodic one still being written.
+    Per-step logs are summed on the device; each log window reads them to
+    the host once. ``--steps_per_dispatch > 1`` runs fused blocks
+    (``_run_fused_training``); otherwise one step at a time
+    (``_run_step_training``)."""
     if config.steps_per_dispatch > 1:
         logging.info("sampler backend: device%s",
                      " (auto)" if config.sampler_backend == "auto" else "")
         _run_fused_training(trainer, config, ds, device, evaluate, ckpt_mod, log_metrics)
-        ckpt_mod.save_model(trainer, config, config.save_path)
-        return
+    else:
+        _run_step_training(trainer, config, ds, device, evaluate, ckpt_mod, log_metrics)
+    _periodic_save(ckpt_mod, trainer, config, final=True)
+
+
+def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod,
+                       log_metrics) -> None:
+    """One step at a time, on batches of the host sampler or the device
+    sampler; ``--profile_dir`` traces the loop, Valid evaluations included."""
+    from . import native as native_mod
+    from .sampler import build_train_iterator
+
     backend = config.sampler_backend
     if backend == "auto" and device.type == "cuda":
         backend = _auto_sampler_backend(config, ds, trainer.spec, trainer.tspec)
@@ -400,31 +410,36 @@ def _train(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod, log_metri
     t_last = time.time()
     n_since = 0
     try:
-        for step in range(trainer.step, config.max_steps):
-            pos, neg, w, mode = next(it)
-            logs = trainer.one_step((to_device(pos), to_device(neg), to_device(w), mode))
-            if log_acc is None:
-                log_keys = sorted(logs)
-                log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
-            log_acc = log_acc + torch.stack([logs[k] for k in log_keys])
-            n_since += 1
+        with profiling.trace(config.profile_dir, device):
+            for step in range(trainer.step, config.max_steps):
+                pos, neg, w, mode = next(it)
+                with profiling.StepTimer("train_step"):
+                    logs = trainer.one_step((to_device(pos), to_device(neg), to_device(w),
+                                             mode))
+                if log_acc is None:
+                    log_keys = sorted(logs)
+                    log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
+                log_acc = log_acc + torch.stack([logs[k] for k in log_keys])
+                n_since += 1
 
-            if (step + 1) % config.save_checkpoint_steps == 0:
-                ckpt_mod.save_model(trainer, config, config.save_path)
-            if (step + 1) % config.log_steps == 0:
-                sums = log_acc.cpu().numpy()  # the one device sync per window
-                metrics = {k: float(v) / n_since for k, v in zip(log_keys, sums)}
-                metrics["triples_per_sec"] = n_since * config.batch_size / (time.time() - t_last)
-                log_metrics("Training average", step, metrics)
-                log_acc = torch.zeros_like(log_acc)
-                t_last = time.time()
-                n_since = 0
-            if config.do_valid and (step + 1) % config.valid_steps == 0:
-                logging.info("Evaluating on Valid Dataset...")
-                log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
+                if (step + 1) % config.save_checkpoint_steps == 0:
+                    _periodic_save(ckpt_mod, trainer, config)
+                if (step + 1) % config.log_steps == 0:
+                    # a failed background write aborts within one log window
+                    ckpt_mod.check_pending_save()
+                    sums = log_acc.cpu().numpy()  # the one device sync per window
+                    metrics = {k: float(v) / n_since for k, v in zip(log_keys, sums)}
+                    metrics["triples_per_sec"] = (n_since * config.batch_size
+                                                  / (time.time() - t_last))
+                    log_metrics("Training average", step, metrics)
+                    log_acc = torch.zeros_like(log_acc)
+                    t_last = time.time()
+                    n_since = 0
+                if config.do_valid and (step + 1) % config.valid_steps == 0:
+                    logging.info("Evaluating on Valid Dataset...")
+                    log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
     finally:
         it.close()
-    ckpt_mod.save_model(trainer, config, config.save_path)
 
 
 def _run_fused_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod,
@@ -433,7 +448,9 @@ def _run_fused_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_m
     (knowledgegraphembedding_tpu/cli.py §_run_fused_training): blocks
     clipped to every log, checkpoint and validation boundary, to
     ``max_steps`` and to the warm-up decay, so event timing and the LR
-    schedule are those of the per-step loop; one host read per log window."""
+    schedule are those of the per-step loop; one host read per log window.
+    ``--profile_dir`` traces the loop, the first block's graph capture and
+    the Valid evaluations between blocks included."""
     def to_boundary(step, period):
         return period - step % period
 
@@ -441,35 +458,54 @@ def _run_fused_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_m
     log_acc = None
     t_last = time.time()
     n_since = 0
-    while trainer.step < config.max_steps:
-        step0 = trainer.step
-        k = min(config.steps_per_dispatch, config.max_steps - step0,
-                to_boundary(step0, config.log_steps),
-                to_boundary(step0, config.save_checkpoint_steps))
-        if config.do_valid:
-            k = min(k, to_boundary(step0, config.valid_steps))
-        k = trainer.max_block(k)
-        logs = trainer.run_block(k)  # sums over the k steps, on the device
-        if log_acc is None:
-            log_keys = sorted(logs)
-            log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
-        log_acc = log_acc + torch.stack([logs[kk] for kk in log_keys])
-        n_since += k
+    with profiling.trace(config.profile_dir, device):
+        while trainer.step < config.max_steps:
+            step0 = trainer.step
+            k = min(config.steps_per_dispatch, config.max_steps - step0,
+                    to_boundary(step0, config.log_steps),
+                    to_boundary(step0, config.save_checkpoint_steps))
+            if config.do_valid:
+                k = min(k, to_boundary(step0, config.valid_steps))
+            k = trainer.max_block(k)
+            with profiling.StepTimer("train_block"):
+                logs = trainer.run_block(k)  # sums over the k steps, on the device
+            if log_acc is None:
+                log_keys = sorted(logs)
+                log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
+            log_acc = log_acc + torch.stack([logs[kk] for kk in log_keys])
+            n_since += k
 
-        step = trainer.step - 1  # the last completed step
-        if (step + 1) % config.save_checkpoint_steps == 0:
-            ckpt_mod.save_model(trainer, config, config.save_path)
-        if (step + 1) % config.log_steps == 0:
-            sums = log_acc.cpu().numpy()  # the one device sync per window
-            metrics = {kk: float(v) / n_since for kk, v in zip(log_keys, sums)}
-            metrics["triples_per_sec"] = n_since * config.batch_size / (time.time() - t_last)
-            log_metrics("Training average", step, metrics)
-            log_acc = torch.zeros_like(log_acc)
-            t_last = time.time()
-            n_since = 0
-        if config.do_valid and (step + 1) % config.valid_steps == 0:
-            logging.info("Evaluating on Valid Dataset...")
-            log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
+            step = trainer.step - 1  # the last completed step
+            if (step + 1) % config.save_checkpoint_steps == 0:
+                _periodic_save(ckpt_mod, trainer, config)
+            if (step + 1) % config.log_steps == 0:
+                ckpt_mod.check_pending_save()
+                sums = log_acc.cpu().numpy()  # the one device sync per window
+                metrics = {kk: float(v) / n_since for kk, v in zip(log_keys, sums)}
+                metrics["triples_per_sec"] = (n_since * config.batch_size
+                                              / (time.time() - t_last))
+                log_metrics("Training average", step, metrics)
+                log_acc = torch.zeros_like(log_acc)
+                t_last = time.time()
+                n_since = 0
+            if config.do_valid and (step + 1) % config.valid_steps == 0:
+                logging.info("Evaluating on Valid Dataset...")
+                log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
+
+
+def _periodic_save(ckpt_mod, trainer, config: RunConfig, final: bool = False) -> None:
+    """The checkpoint dispatch of the JAX CLI (knowledgegraphembedding_tpu/
+    cli.py §_periodic_save): shard files per process for a mesh trainer
+    under ``--sharded_checkpoint`` (no trainer here has a mesh before ROADMAP
+    Queue 1 item 14, so the flag stays inert, as in the JAX CLI without a
+    mesh), else the single-file save. Periodic saves are asynchronous under
+    ``--async_checkpoint``; the final one never is."""
+    asynchronous = config.async_checkpoint and not final
+    if config.sharded_checkpoint and getattr(trainer, "mesh", None) is not None:
+        ckpt_mod.save_model_sharded(trainer, config, config.save_path,
+                                    asynchronous=asynchronous)
+    else:
+        ckpt_mod.save_model(trainer, config, config.save_path, asynchronous=asynchronous)
 
 
 if __name__ == "__main__":

@@ -110,6 +110,10 @@ class Trainer:
     params and optimizer state it updates (the loop state of codes/run.py
     §main)."""
 
+    # checkpoint.save_model may snapshot the state on the device and write
+    # it from a background thread
+    supports_async_checkpoint = True
+
     def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
                  warm_up_steps: int, init_step: int = 0):
         self.dense = use_dense_scoring(spec, tspec)  # raises for dense on a non-bilinear model

@@ -3,8 +3,10 @@ CLI (the tiny RotatE run of the verify recipe) is evaluated by both CLIs with
 ``--do_test -init`` and must give the same Test metrics; both CLIs train the
 same step-0 checkpoint on the same sampler stream with ``--do_train
 --do_valid --do_test`` and must log the same loss windows and Test metrics;
-flags of work not ported yet (multi-device runs, profiling) are refused; the platform flag never falls back
-to the CPU. The fused and device-sampler flows are in
+flags of work not ported yet (multi-device runs) are refused, while
+``--profile_dir``, ``--no-async_checkpoint`` and the inert
+``--sharded_checkpoint`` run and leave the metrics as they were; the
+platform flag never falls back to the CPU. The fused and device-sampler flows are in
 tests/test_torch_fused_train.py, countries in tests/test_torch_countries.py."""
 
 import dataclasses
@@ -69,7 +71,6 @@ def test_do_valid_and_evaluate_train_match_jax(jax_run):
     # a host sampler cannot feed a fused block: the JAX CLI's ValueError
     (["--do_train", "-save", "s", "--steps_per_dispatch", "2", "--sampler_backend", "native"],
      ValueError, "cannot feed a fused block"),
-    (["--do_train", "-save", "s", "--profile_dir", "p"], NotImplementedError, "item 15"),
     (["--do_test", "--num_shards", "2"], NotImplementedError, "item 14"),
     (["--do_test", "--model_shards", "2"], NotImplementedError, "item 14"),
     (["--do_test", "--multihost"], NotImplementedError, "item 14"),
@@ -84,6 +85,27 @@ def test_unported_flags_are_refused(argv, exc, item, tmp_path):
     if exc is ValueError:
         with pytest.raises(exc, match=item):
             j_cli.main(argv + ["--data_path", "synthetic:clustered", "--platform", "cpu"])
+
+
+@pytest.mark.parametrize("flag", [["--profile_dir", "p"], ["--no-async_checkpoint"],
+                                  ["--sharded_checkpoint"]],
+                         ids=["profile_dir", "no-async_checkpoint", "sharded_checkpoint"])
+def test_item_15_flags_run(tmp_path, flag):
+    """Once refused with item 15 (``--profile_dir``) or inert before it: a
+    short train-then-test run gives the metrics of the run without the
+    flag. ``--sharded_checkpoint`` applies to mesh trainers only (item 14),
+    as in the JAX CLI without a mesh: the save stays single-file."""
+    argv = ["--do_train", "--do_test", "--data_path", "synthetic:clustered", "--model",
+            "TransE", "-n", "4", "-b", "16", "-d", "8", "--max_steps", "12", "--log_steps", "6",
+            "--save_checkpoint_steps", "6", "--test_batch_size", "8", "--platform", "cpu"]
+    want = t_cli.main(argv + ["-save", str(tmp_path / "plain")])
+    flag = [str(tmp_path / a) if a == "p" else a for a in flag]
+    got = t_cli.main(argv + flag + ["-save", str(tmp_path / "flag")])
+    assert got == want
+    assert sorted(f for f in os.listdir(tmp_path / "flag") if f.endswith((".npz", ".npy"))) == [
+        "checkpoint.npz", "entity_embedding.npy", "relation_embedding.npy"]
+    if flag[0] == "--profile_dir":
+        assert [f for f in os.listdir(flag[1]) if f.endswith(".pt.trace.json")]
 
 
 def test_scoring_dense_on_a_distance_model_is_refused(tmp_path):
