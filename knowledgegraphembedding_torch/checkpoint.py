@@ -244,7 +244,15 @@ def save_model(trainer, config: RunConfig, save_path: str, asynchronous: bool = 
     # host values now; the Adam count travels in the snapshot (reading it
     # here would wait for the device)
     step, lr, warm_up = trainer.step, trainer.current_learning_rate, trainer.warm_up_steps
-    tensors = _state_tensors(trainer.params, trainer.opt_state)
+    if getattr(trainer, "mesh", None) is not None:
+        # a mesh trainer gathers its state on every rank (a collective);
+        # global rank 0 writes it, as the JAX package's process 0 does
+        params, opt_state = trainer.gathered_state()
+        if process_layout()[0] != 0:
+            return
+    else:
+        params, opt_state = trainer.params, trainer.opt_state
+    tensors = _state_tensors(params, opt_state)
     if not (asynchronous and getattr(trainer, "supports_async_checkpoint", False)):
         _write_artifacts(_flatten(_host(tensors), step, lr, warm_up), config, save_path)
         return
@@ -357,8 +365,8 @@ def save_model_sharded(trainer, config: RunConfig, save_path: str, asynchronous:
     """This process's shard file, and on process 0 the meta npz and
     config.json. ``blocks`` are the row blocks this process holds, per
     sharded key (``param.entity_embedding``, ``adam_m.*``, ``adam_v.*``) its
-    global shape and ``(tensor, [r0, r1, c0, c1])`` pairs; by default
-    ``row_blocks``. Every other leaf is replicated and goes to the meta npz.
+    global shape and ``(tensor, [r0, r1, c0, c1])`` pairs; by default a
+    mesh trainer's own (``ShardedTrainer.row_blocks``), else ``row_blocks``. Every other leaf is replicated and goes to the meta npz.
     ``process_index``/``process_count`` default to ``process_layout()``.
     ``asynchronous`` snapshots the blocks and leaves on the device and
     writes on the background thread, as ``save_model`` does; no collective
@@ -366,7 +374,8 @@ def save_model_sharded(trainer, config: RunConfig, save_path: str, asynchronous:
     wait_for_pending_save()
     p, n = process_layout(process_index, process_count)
     if blocks is None:
-        blocks = row_blocks(trainer, p, n)
+        blocks = (trainer.row_blocks() if getattr(trainer, "mesh", None) is not None
+                  else row_blocks(trainer, p, n))
     step, lr, warm_up = trainer.step, trainer.current_learning_rate, trainer.warm_up_steps
     state = _state_tensors(trainer.params, trainer.opt_state)
     keys = [k for k in state if k != "adam_count"]
@@ -524,6 +533,56 @@ def load_checkpoint(path: str, device) -> Checkpoint:
         current_learning_rate=float(arrays["current_learning_rate"]),
         warm_up_steps=int(arrays["warm_up_steps"]),
     )
+
+
+def restore_trainer_sharded(trainer, path: str):
+    """PROCESS-LOCAL restore of a mesh trainer (``parallel.sharding.
+    ShardedTrainer``, ``FusedMeshTrainer``) from a sharded checkpoint (JAX
+    ``checkpoint.py:482-565``): each rank reads only the blocks its own
+    rows and columns intersect (``_BlockCatalog.fill_slice``); no rank holds
+    or reads the full table. The saved process count and padding may differ
+    from the mesh's: blocks are addressed by global bounds, and rows past
+    the saved extent are zeros (padding rows are zero by contract)."""
+    from .parallel.sharding import ENTITY, block_slices, data_size, is_model_sharded, model_size
+
+    mesh = trainer.mesh
+    device = trainer.params[ENTITY].device
+    with np.load(os.path.join(path, "checkpoint.npz")) as meta:
+        if "sharded_shards" not in meta.files:
+            raise ValueError(f"{path} is not a sharded checkpoint; use load_checkpoint")
+        step = int(meta["step"])
+        with _BlockCatalog(path, int(meta["sharded_shards"]), step) as cat:
+            def restore(prefix, tree):
+                out = {}
+                for name, t in tree.items():
+                    key = f"{prefix}.{name}"
+                    shape = list(t.shape)
+                    if name == ENTITY:
+                        shape[0] *= data_size(mesh)
+                    if is_model_sharded(mesh) and t.dim() == 2:
+                        shape[1] *= model_size(mesh)
+                    idx = block_slices(name, shape, mesh)
+                    if f"shape:{key}" in meta.files:
+                        cat.validate_coverage(key, tuple(int(x) for x in meta[f"shape:{key}"]))
+                        arr = cat.fill_slice(key, idx or (slice(None), slice(None)), shape,
+                                             torch.empty(0, dtype=t.dtype).numpy().dtype)
+                    else:
+                        arr = np.asarray(meta[key])
+                        arr = arr[idx] if idx is not None else arr
+                    out[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(device)
+                return out
+
+            params = restore("param", trainer.params)
+            m, v = restore("adam_m", trainer.opt_state.m), restore("adam_v", trainer.opt_state.v)
+            count = int(meta["adam_count"])
+            lr, warm_up = float(meta["current_learning_rate"]), int(meta["warm_up_steps"])
+    trainer.params = {k: p.requires_grad_(True) for k, p in params.items()}
+    trainer.opt_state = optim.AdamState(
+        steps=torch.tensor(count, dtype=torch.int32, device=device), m=m, v=v)
+    trainer.step = step
+    trainer.current_learning_rate = lr
+    trainer.warm_up_steps = warm_up
+    return trainer
 
 
 def restore_trainer(trainer, path: str):

@@ -12,9 +12,10 @@ five models: DistMult and ComplEx score and rank through dense matmuls, the
 others through row gathers and the rank kernel. Periodic saves are
 asynchronous unless ``--no-async_checkpoint`` is given, the final save is
 synchronous, and ``--profile_dir`` traces the training loop with
-torch.profiler. Flags of work not ported yet (multi-device runs) are
-parsed, so a saved ``config.json`` loads, and refused with
-``NotImplementedError`` naming the ROADMAP item. It runs on CUDA unless
+torch.profiler. ``--num_shards``, ``--model_shards`` and ``--multihost``
+run the mesh schedules of ``parallel/`` on ``torch.distributed``, one
+process per device: the CLI spawns its local ranks (``multihost.launch``)
+or joins the group that ``torchrun`` set up. It runs on CUDA unless
 ``--platform cpu`` is given.
 
 Usage:
@@ -24,6 +25,9 @@ Usage:
       -save models/RotatE_FB15k-237_0
   python -m knowledgegraphembedding_torch.cli --do_test \
       -init models/RotatE_FB15k-237_0 --test_batch_size 16
+  python -m knowledgegraphembedding_torch.cli ... --num_shards 2 --spmd_mode shardmap
+  python -m knowledgegraphembedding_torch.cli ... --multihost \
+      --coordinator_address HOST0:PORT --num_processes 2 --process_id {0,1}
 """
 
 from __future__ import annotations
@@ -38,8 +42,10 @@ import zlib
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from .config import RunConfig
+from .parallel import multihost
 from .utils import profiling
 
 
@@ -141,18 +147,130 @@ def resolve_device(config: RunConfig) -> torch.device:
     return torch.device("cuda")
 
 
-def refuse_unported(config: RunConfig) -> None:
-    """Flags whose work is not ported yet fail loudly, naming the ROADMAP item."""
-    refused = (
-        (config.num_shards > 1 or config.model_shards > 1,
-         "--num_shards/--model_shards > 1: multi-device schedules are not "
-         "ported yet (ROADMAP Queue 1, item 14)"),
-        (config.multihost, "--multihost: multi-host runs are not ported yet "
-                           "(ROADMAP Queue 1, item 14)"),
-    )
-    for cond, msg in refused:
-        if cond:
-            raise NotImplementedError(msg)
+def fleet_layout(config: RunConfig, device: torch.device):
+    """(ranks per process, world size) of the run, after the JAX CLI's
+    flag and fleet checks (knowledgegraphembedding_tpu/cli.py:284-318); a
+    fleet's ``--num_shards 1`` becomes the fleet's data size, as there. One
+    rank per device: on CUDA a rank owns one card, so a run asking for more
+    ranks than there are visible cards raises (NCCL cannot share a card,
+    and nothing falls back to the CPU). A fleet host on CUDA starts one
+    rank per visible card; on the CPU ``num_shards * model_shards / P``."""
+    if config.num_shards < 1 or config.model_shards < 1:
+        raise ValueError(
+            f"--num_shards {config.num_shards} / --model_shards "
+            f"{config.model_shards}: both must be >= 1")
+    procs = config.num_processes if config.multihost and config.num_processes else 1
+    if dist.is_initialized():
+        world = dist.get_world_size()
+        local = multihost.local_ranks()
+        procs = world // local
+    elif procs > 1:
+        local = (torch.cuda.device_count() if device.type == "cuda"
+                 else max(1, config.num_shards * config.model_shards // procs))
+        world = procs * local
+    else:
+        local = world = config.num_shards * config.model_shards
+    if procs > 1:
+        if world % config.model_shards != 0:
+            raise ValueError(
+                f"--model_shards {config.model_shards} must divide the "
+                f"fleet device count ({world})")
+        if config.num_shards == 1:
+            # span the whole fleet: data axis = devices / model columns
+            config.num_shards = world // config.model_shards
+        if config.num_shards * config.model_shards != world:
+            raise ValueError(
+                f"--num_shards {config.num_shards} x --model_shards "
+                f"{config.model_shards} != fleet device count "
+                f"{world}: multihost meshes must span every "
+                "process's devices")
+        if config.model_shards > 1 and local % config.model_shards != 0:
+            raise ValueError(
+                f"--model_shards {config.model_shards} must divide the "
+                f"local device count ({local}) on a "
+                "multihost fleet (each host owns whole data-rows)")
+    if device.type == "cuda" and not dist.is_initialized() and local > torch.cuda.device_count():
+        raise ValueError(
+            f"--num_shards {config.num_shards} x --model_shards {config.model_shards} asks "
+            f"for {local} ranks on this host, but {torch.cuda.device_count()} CUDA devices "
+            "are visible; NCCL needs one device per rank")
+    return local, world
+
+
+def check_mesh_flags(config: RunConfig) -> None:
+    """The JAX CLI's refusals of mesh flag combinations
+    (knowledgegraphembedding_tpu/cli.py:338-366, :564-568), checked before
+    any rank starts."""
+    if config.num_shards == 1 and config.model_shards == 1:
+        return
+    if config.do_train and config.steps_per_dispatch > 1:
+        if config.model_shards > 1:
+            raise ValueError(
+                "--steps_per_dispatch > 1 is written for the 1-D row "
+                "shard; use per-step training with --model_shards")
+        if config.spmd_mode == "routed":
+            raise ValueError(
+                "--steps_per_dispatch > 1 on a mesh fuses the "
+                "hand-scheduled table-gather step; the routed "
+                "all_to_all schedule has no fused variant — use "
+                "--spmd_mode shardmap/gspmd or per-step training")
+        if config.sampler_backend not in ("auto", "device"):
+            raise ValueError(
+                "--steps_per_dispatch > 1 fuses the DEVICE sampler into "
+                "the train program; --sampler_backend "
+                f"{config.sampler_backend} cannot feed a fused block")
+    if config.do_train and config.sampler_backend == "device" and config.model_shards > 1:
+        raise ValueError(
+            "--sampler_backend device is written for the 1-D row-shard "
+            "mesh; use a host sampler backend with --model_shards")
+
+
+def join_launcher_group(config: RunConfig, device: torch.device) -> None:
+    """Join the process group of a launcher such as torchrun (``RANK``,
+    ``WORLD_SIZE``, ``MASTER_ADDR``, ``MASTER_PORT``) in this process. An
+    explicit ``--multihost`` needs either that environment or all three of
+    ``--coordinator_address``, ``--num_processes`` and ``--process_id``, and
+    raises before any rank starts otherwise, as the JAX CLI's
+    ``initialize(require=True)`` does (knowledgegraphembedding_tpu/cli.py:
+    187-196): a fleet never degrades to processes that each train alone as
+    process 0."""
+    if dist.is_initialized():
+        return
+    fleet_flags = (config.coordinator_address, config.num_processes, config.process_id)
+    if config.multihost and any(f is not None for f in fleet_flags):
+        if any(f is None for f in fleet_flags):
+            raise ValueError("a fleet needs --coordinator_address, --num_processes and "
+                             "--process_id together")
+        return  # each rank joins at the coordinator (_fleet_rank)
+    if config.multihost or int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        multihost.initialize(require=config.multihost, device_type=device.type)
+
+
+def _fleet_rank(local_rank: int, argv, coordinator: str, procs: int, process_id: int,
+                local: int, device_type: str) -> dict:
+    """One spawned rank: join the fleet, then run the CLI as that rank."""
+    torch.set_num_threads(max(1, torch.get_num_threads() // local))
+    multihost.initialize(coordinator, procs, process_id, require=True, local_rank=local_rank,
+                         ranks_per_process=local, device_type=device_type)
+    try:
+        return main(argv)
+    finally:
+        dist.destroy_process_group()
+
+
+def _launch_fleet(argv, config: RunConfig, device: torch.device, local: int) -> dict:
+    """Start this host's ``local`` ranks and return local rank 0's metrics:
+    at ``--coordinator_address`` under ``--multihost``, else on a free
+    loopback port (one host)."""
+    if config.multihost:  # join_launcher_group saw all three fleet flags
+        coordinator, procs, pid = (config.coordinator_address, config.num_processes,
+                                   config.process_id)
+    else:
+        coordinator, procs, pid = f"127.0.0.1:{multihost.free_port()}", 1, 0
+    args = (argv, coordinator, procs, pid, local, device.type)
+    if local == 1:  # this process is the host's only rank
+        return _fleet_rank(0, *args)
+    return multihost.launch(_fleet_rank, args, local)
 
 
 def main(argv=None) -> dict:
@@ -166,6 +284,7 @@ def main(argv=None) -> dict:
     from .train import Trainer
     from .utils.logging import log_metrics, set_logger
 
+    argv = list(sys.argv[1:] if argv is None else argv)
     config = parse_args(argv)
     # --- validation (codes/run.py §main ≈L182-190) ---
     if not (config.do_train or config.do_valid or config.do_test):
@@ -176,10 +295,24 @@ def main(argv=None) -> dict:
         raise ValueError("one of init_checkpoint/data_path must be chosen")
     if config.do_train and config.save_path is None:
         raise ValueError("Where do you want to save your trained model?")
-    refuse_unported(config)
     device = resolve_device(config)
-
-    set_logger(config.save_path, config.do_train)
+    join_launcher_group(config, device)
+    local, world = fleet_layout(config, device)
+    check_mesh_flags(config)
+    if (world > 1 or config.multihost) and not dist.is_initialized():
+        return _launch_fleet(argv, config, device, local)
+    mesh_run = config.num_shards > 1 or config.model_shards > 1
+    if dist.is_initialized() and dist.get_world_size() > 1 and not mesh_run:
+        raise ValueError(f"a fleet of {dist.get_world_size()} ranks needs --num_shards or "
+                         "--model_shards to span it")
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    if rank % local == 0:  # each host's first rank logs; only rank 0 writes train.log
+        set_logger(config.save_path if rank == 0 else None, config.do_train)
+    else:
+        set_logger(None, config.do_train)
+        logging.getLogger().setLevel(logging.WARNING)
+    if device.type == "cuda":
+        device = torch.device("cuda", torch.cuda.current_device())
 
     # --- data (codes/run.py §main ≈L190-235) ---
     ds = registry.load(config.data_path, countries=config.countries)
@@ -222,7 +355,24 @@ def main(argv=None) -> dict:
 
     trainer = None
     step = 0
-    if config.do_train:
+    mesh = None
+    if mesh_run:
+        from .parallel import sharding
+
+        mesh = sharding.build_mesh(config.num_shards, model_shards=config.model_shards,
+                                   device_type=device.type)
+        sharding.log_mesh(config, mesh)
+        warm_up = config.warm_up_steps if config.warm_up_steps else config.max_steps // 2
+        gen = torch.Generator(device=device).manual_seed(config.seed)
+        trainer = _mesh_trainer(config, ds, spec, kge.init_params(spec, gen, device=device),
+                                warm_up, mesh)
+        if config.init_checkpoint:
+            logging.info("Loading checkpoint %s...", config.init_checkpoint)
+            _restore_mesh_trainer(trainer, config.init_checkpoint, ckpt_mod, device)
+        else:
+            logging.info("Randomly Initializing %s Model...", config.model)
+        params, step = trainer.params, trainer.step
+    elif config.do_train:
         warm_up = config.warm_up_steps if config.warm_up_steps else config.max_steps // 2
         gen = torch.Generator(device=device).manual_seed(config.seed)
         init = kge.init_params(spec, gen, device=device)
@@ -258,6 +408,15 @@ def main(argv=None) -> dict:
     def evaluate(params, triples):
         """Countries AUC-PR under --countries, else filtered link prediction
         (codes/model.py §test_step's two branches)."""
+        if mesh is not None:
+            if config.countries:  # the gathered tables, as the JAX CLI's host_params
+                full = kge.params_from_numpy(trainer.host_params(), device)
+                return {"auc_pr": eval_mod.countries_auc_pr(full, spec, triples, config.regions)}
+            from .parallel import eval_sharded
+
+            return eval_sharded.sharded_test_step(
+                params, spec, triples, filters, mesh, test_batch_size=config.test_batch_size,
+                device_filter={"auto": None, "host": False, "device": True}[config.eval_filter])
         if config.countries:
             return {"auc_pr": eval_mod.countries_auc_pr(params, spec, triples, config.regions)}
         return eval_mod.test_step(
@@ -272,7 +431,7 @@ def main(argv=None) -> dict:
             device_filter={"auto": None, "host": False, "device": True}[config.eval_filter],
         )
 
-    if trainer is not None:
+    if config.do_train:
         logging.info("learning_rate = %f", trainer.current_learning_rate)
         logging.info("negative scoring: %s (--scoring %s)",
                      "dense" if trainer.dense else "gather", config.scoring)
@@ -293,6 +452,46 @@ def main(argv=None) -> dict:
         final_metrics["train"] = evaluate(params, ds.train)
         log_metrics("Test", step, final_metrics["train"])
     return final_metrics
+
+
+def _mesh_trainer(config: RunConfig, ds, spec, params, warm_up: int, mesh):
+    """The mesh trainer (knowledgegraphembedding_tpu/cli.py:338-383): fused
+    blocks under ``--steps_per_dispatch > 1`` (the explicit schedule, for
+    gspmd too), else ``ShardedTrainer`` with ``--spmd_mode``."""
+    from .parallel.sharding import ShardedTrainer, data_size
+
+    if config.do_train and config.steps_per_dispatch > 1:
+        from .fused_train import FusedMeshTrainer
+
+        if config.spmd_mode == "gspmd":
+            logging.info("fused mesh blocks use the hand-scheduled collective "
+                         "schedule (equivalent to gspmd; parity-pinned)")
+        trainer = FusedMeshTrainer(spec, config.train_spec(), params, lr=config.learning_rate,
+                                   warm_up_steps=warm_up, train=ds.train, mesh=mesh,
+                                   seed=config.seed, negative_sharing=config.negative_sharing,
+                                   block_capacity=config.steps_per_dispatch)
+        logging.info("fused training: %d steps per dispatch on the %d-device mesh",
+                     config.steps_per_dispatch, data_size(mesh))
+        return trainer
+    return ShardedTrainer(spec, config.train_spec(), params, lr=config.learning_rate,
+                          warm_up_steps=warm_up, mesh=mesh, spmd_mode=config.spmd_mode)
+
+
+def _restore_mesh_trainer(trainer, path: str, ckpt_mod, device) -> None:
+    """``-init`` on a mesh (knowledgegraphembedding_tpu/cli.py:415-429): a
+    sharded checkpoint restores process-locally, a single-file one through
+    the host; then every rank must hold the same step, lr and warm-up."""
+    import types
+
+    if ckpt_mod.is_sharded_checkpoint(path):
+        ckpt_mod.restore_trainer_sharded(trainer, path)
+    else:
+        ck = ckpt_mod.load_checkpoint(path, device)
+        trainer.load_host_state(ck.params, types.SimpleNamespace(
+            count=ck.adam_count, m=ck.adam_m, v=ck.adam_v), ck.step,
+            ck.current_learning_rate, ck.warm_up_steps)
+    multihost.verify_consistent_restore(trainer.step, trainer.current_learning_rate,
+                                        trainer.warm_up_steps)
 
 
 def _fused_trainer(config: RunConfig, ds, spec, params, warm_up: int):
@@ -378,12 +577,19 @@ def _train(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod, log_metri
 def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod,
                        log_metrics) -> None:
     """One step at a time, on batches of the host sampler or the device
-    sampler; ``--profile_dir`` traces the loop, Valid evaluations included."""
+    sampler; ``--profile_dir`` traces the loop, Valid evaluations included.
+    A mesh trainer takes each host batch as numpy and keeps its rank's rows;
+    a fleet host samples its edge partition of the train split at the host
+    batch size (knowledgegraphembedding_tpu/cli.py:538-598). Under
+    ``--spmd_mode routed`` the overflow flag is read every ``min(log_steps,
+    25)`` steps and before every save, and an overflow raises before any
+    checkpoint of the corrupted state is written (cli.py:609-672)."""
     from . import native as native_mod
     from .sampler import build_train_iterator
 
+    mesh = getattr(trainer, "mesh", None)
     backend = config.sampler_backend
-    if backend == "auto" and device.type == "cuda":
+    if backend == "auto" and device.type == "cuda" and mesh is None:
         backend = _auto_sampler_backend(config, ds, trainer.spec, trainer.tspec)
     if backend in ("auto", "native") and native_mod.available():
         native_mod.set_threads(config.cpu_num)
@@ -393,18 +599,41 @@ def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mo
         backend = "native" if native_mod.available() else "numpy"
     if backend != "device" or config.sampler_backend == "device":
         logging.info("sampler backend: %s", backend)
-    it = build_train_iterator(
-        ds.train, ds.nentity, ds.nrelation, config.batch_size,
-        config.negative_sample_size, seed=config.seed,
-        prefetch_depth=config.prefetch_depth, backend=backend,
-        # on CUDA the prefetch thread uploads batch i+1 under step i; the
-        # device sampler draws its batches there
-        device=device if device.type == "cuda" else None,
-        negative_sharing=config.negative_sharing)
+    index_subset, stream_batch, stream_seed, shared_seed = None, config.batch_size, config.seed, None
+    if mesh is not None and multihost.process_count() > 1:
+        index_subset = multihost.host_shard_of_indices(len(ds.train))
+        stream_batch = multihost.host_batch_size(config.batch_size)
+        stream_seed = config.seed + 7919 * multihost.process_index()
+        if config.negative_sharing == "batch":
+            # the replicated [1, n] row: the same stream on every host
+            shared_seed = config.seed + 10_000_019
+    if mesh is not None and backend == "device":
+        from .sampler.device_sampler import build_mesh_device_iterator
+
+        it = build_mesh_device_iterator(
+            mesh, ds.train, ds.nentity, ds.nrelation, config.batch_size,
+            config.negative_sample_size, seed=config.seed,
+            negative_sharing=config.negative_sharing,
+            depth=max(1, config.prefetch_depth // 2), index_subset=index_subset)
+    else:
+        it = build_train_iterator(
+            ds.train, ds.nentity, ds.nrelation, stream_batch,
+            config.negative_sample_size, seed=stream_seed,
+            prefetch_depth=config.prefetch_depth, backend=backend,
+            # on CUDA the prefetch thread uploads batch i+1 under step i; the
+            # device sampler draws its batches there; a mesh trainer takes
+            # host arrays and uploads its own rows
+            device=device if device.type == "cuda" and mesh is None else None,
+            negative_sharing=config.negative_sharing, index_subset=index_subset,
+            shared_negative_seed=shared_seed)
 
     def to_device(x):
-        return x if isinstance(x, torch.Tensor) else torch.from_numpy(x).to(device)
+        if mesh is not None or isinstance(x, torch.Tensor):
+            return x
+        return torch.from_numpy(x).to(device)
 
+    overflow_every = (min(config.log_steps, 25)
+                      if config.spmd_mode == "routed" and mesh is not None else 0)
     log_keys: list = []
     log_acc = None
     t_last = time.time()
@@ -422,7 +651,10 @@ def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mo
                 log_acc = log_acc + torch.stack([logs[k] for k in log_keys])
                 n_since += 1
 
+                if overflow_every and (step + 1) % overflow_every == 0:
+                    _raise_on_overflow(log_acc, log_keys, _OVERFLOW)
                 if (step + 1) % config.save_checkpoint_steps == 0:
+                    _raise_on_overflow(log_acc, log_keys, _OVERFLOW_SAVE)
                     _periodic_save(ckpt_mod, trainer, config)
                 if (step + 1) % config.log_steps == 0:
                     # a failed background write aborts within one log window
@@ -432,14 +664,34 @@ def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mo
                     metrics["triples_per_sec"] = (n_since * config.batch_size
                                                   / (time.time() - t_last))
                     log_metrics("Training average", step, metrics)
+                    if metrics.get("routed_overflow", 0.0) > 0.0:
+                        raise RuntimeError(_OVERFLOW)
                     log_acc = torch.zeros_like(log_acc)
                     t_last = time.time()
                     n_since = 0
                 if config.do_valid and (step + 1) % config.valid_steps == 0:
                     logging.info("Evaluating on Valid Dataset...")
                     log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
+            if overflow_every:  # steps since the last poll, before the final save
+                _raise_on_overflow(log_acc, log_keys, _OVERFLOW_SAVE)
     finally:
         it.close()
+
+
+# the JAX CLI's messages
+_OVERFLOW = ("routed exchange bucket overflow detected — capacity exceeded; "
+             "use --spmd_mode shardmap")
+_OVERFLOW_SAVE = ("routed exchange bucket overflow detected before checkpoint save — "
+                  "aborting without persisting corrupted state; use --spmd_mode shardmap")
+
+
+def _raise_on_overflow(log_acc, log_keys, message: str) -> None:
+    """Raise ``message`` if the summed ``routed_overflow`` flag (logged by
+    the routed step only) is set: a bucket past its capacity dropped rows,
+    and the state must never be saved (one scalar read)."""
+    if log_acc is not None and "routed_overflow" in log_keys:
+        if float(log_acc[log_keys.index("routed_overflow")]) > 0:
+            raise RuntimeError(message)
 
 
 def _run_fused_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod,
@@ -495,11 +747,12 @@ def _run_fused_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_m
 
 def _periodic_save(ckpt_mod, trainer, config: RunConfig, final: bool = False) -> None:
     """The checkpoint dispatch of the JAX CLI (knowledgegraphembedding_tpu/
-    cli.py §_periodic_save): shard files per process for a mesh trainer
-    under ``--sharded_checkpoint`` (no trainer here has a mesh before ROADMAP
-    Queue 1 item 14, so the flag stays inert, as in the JAX CLI without a
-    mesh), else the single-file save. Periodic saves are asynchronous under
-    ``--async_checkpoint``; the final one never is."""
+    cli.py §_periodic_save): under ``--sharded_checkpoint`` each rank of a
+    mesh trainer writes its own blocks (the flag is inert without a mesh,
+    as in the JAX CLI), else the single-file save (a mesh trainer's state
+    gathered, written by rank 0). Periodic saves are asynchronous under
+    ``--async_checkpoint`` where the trainer supports it; the final one
+    never is."""
     asynchronous = config.async_checkpoint and not final
     if config.sharded_checkpoint and getattr(trainer, "mesh", None) is not None:
         ckpt_mod.save_model_sharded(trainer, config, config.save_path,

@@ -32,8 +32,14 @@ CPU there are no graphs, and the same step function runs eagerly.
 The caller clips k so that a block never crosses the warm-up decay
 (``max_block``); the decay after a block sets the device lr and zeroes the
 moments and count in place (``Trainer.decay_if_due``), so the graphs keep
-updating the live state. The mesh half (``FusedMeshTrainer``) waits for
-ROADMAP Queue 1, item 14.
+updating the live state.
+
+``FusedMeshTrainer`` runs the same blocks on a 1-D mesh (JAX
+``fused_train.py:300-489``): each rank draws its rows of the global batch
+(``MeshDeviceSampler``) and its graphs capture the hand-scheduled table
+all-gather step (``parallel/shard_map_step.py``) with its NCCL collectives;
+the eager warm-up before the capture creates the communicators. gspmd runs
+this schedule too in fused blocks (the two are equal, as the tests hold).
 """
 
 from __future__ import annotations
@@ -44,6 +50,8 @@ import numpy as np
 import torch
 
 from .config import ModelSpec, TrainSpec
+from .parallel.shard_map_step import shardmap_train_step
+from .parallel.sharding import ShardedTrainer, is_model_sharded
 from .sampler.device_sampler import DeviceSampler, draw_index
 from .sampler.negative import HEAD_BATCH, TAIL_BATCH
 from .train import Trainer, train_step
@@ -79,24 +87,31 @@ class FusedDeviceTrainer(Trainer):
                  record_batches: bool = False):
         super().__init__(spec, tspec, params, lr=lr, warm_up_steps=warm_up_steps,
                          init_step=init_step)
+        self.device = self.params["entity_embedding"].device
+
+        def sampler(mode, seed, shared_state):
+            return DeviceSampler(train, spec.nentity, spec.nrelation, tspec.batch_size,
+                                 tspec.negative_sample_size, mode, seed=seed,
+                                 negative_sharing=negative_sharing, shared_state=shared_state,
+                                 device=self.device)
+
+        self._init_blocks(sampler, seed, negative_sharing, block_capacity, record_batches)
+
+    def _init_blocks(self, sampler, seed: int, negative_sharing: str, block_capacity: int,
+                     record_batches: bool) -> None:
+        """The samplers (``sampler(mode, seed, shared_state)``), counters,
+        log sums and block buffers."""
         p = self.params["entity_embedding"]
-        self.device = p.device
         # the two samplers hold the resident state and the host index
         # streams (head seed, tail seed + 1, as the per-step iterator)
-        self._head = DeviceSampler(train, spec.nentity, spec.nrelation, tspec.batch_size,
-                                   tspec.negative_sample_size, HEAD_BATCH, seed=seed,
-                                   negative_sharing=negative_sharing, device=self.device)
+        self._head = sampler(HEAD_BATCH, seed, None)
         # the weights in the params' dtype: f32 as drawn, except in f64 runs,
         # where a weight sum in f32 would seed f32 noise into the loss
         self._head.weights = self._head.weights.to(p.dtype)
-        self._tail = DeviceSampler(train, spec.nentity, spec.nrelation, tspec.batch_size,
-                                   tspec.negative_sample_size, TAIL_BATCH, seed=seed + 1,
-                                   negative_sharing=negative_sharing,
-                                   shared_state=(self._head.triples, self._head.weights),
-                                   device=self.device)
+        self._tail = sampler(TAIL_BATCH, seed + 1, (self._head.triples, self._head.weights))
         self._samplers = {HEAD_BATCH: self._head, TAIL_BATCH: self._tail}
         self.negative_sharing = negative_sharing
-        self._keys = _log_keys(tspec)
+        self._keys = _log_keys(self.tspec)
         self._step_t = torch.zeros((), dtype=torch.int64, device=self.device)
         self._slot = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._log_sum = torch.zeros(len(self._keys), dtype=p.dtype, device=self.device)
@@ -109,7 +124,7 @@ class FusedDeviceTrainer(Trainer):
 
     def _grow(self, capacity: int) -> None:
         """Static per-block buffers for ``capacity`` steps."""
-        B = self.tspec.batch_size
+        B = self._head.batch_size  # this rank's rows on a mesh
         neg_shape = tuple(self._head.counter.shape)  # [B, n], or [1, n] when shared
         self._idx = torch.zeros((capacity, B), dtype=torch.int32, device=self.device)
         if self._record:
@@ -128,11 +143,14 @@ class FusedDeviceTrainer(Trainer):
         if self._record:
             for buf, x in zip(self._rec, (pos, neg, w)):
                 buf.index_copy_(0, self._slot, x.unsqueeze(0))
-        logs = train_step(self.params, self.opt_state, pos, neg, w, self.lr_tensor,
-                          spec=self.spec, tspec=self.tspec, mode=mode)
+        logs = self._train(pos, neg, w, mode)
         self._log_sum.add_(torch.stack([logs[k] for k in self._keys]).to(self._log_sum.dtype))
         self._slot.add_(1)
         self._step_t.add_(1)
+
+    def _train(self, pos, neg, w, mode: str) -> Dict[str, torch.Tensor]:
+        return train_step(self.params, self.opt_state, pos, neg, w, self.lr_tensor,
+                          spec=self.spec, tspec=self.tspec, mode=mode)
 
     def _state(self) -> List[torch.Tensor]:
         """Every tensor a step writes, bar the recorded batches."""
@@ -243,3 +261,39 @@ class FusedDeviceTrainer(Trainer):
         step0, k = self._block0
         return [(*(buf[i].clone() for buf in self._rec), step_mode(step0 + i))
                 for i in range(k)]
+
+
+class FusedMeshTrainer(FusedDeviceTrainer, ShardedTrainer):
+    """Fused k-step blocks on a 1-D mesh (``--steps_per_dispatch`` with
+    ``--num_shards``): the blocks, graphs and counters of
+    ``FusedDeviceTrainer``, the rank's blocks and checkpoint surface of
+    ``ShardedTrainer``; each step draws the rank's rows on its device and
+    runs the explicit all-gather/reduce-scatter schedule. The host ships
+    one ``[k, B / W]`` index block per dispatch. Eager on the CPU."""
+
+    def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
+                 warm_up_steps: int, train: np.ndarray, mesh, seed: int = 0,
+                 init_step: int = 0, negative_sharing: str = "none", block_capacity: int = 16,
+                 record_batches: bool = False):
+        from .parallel import multihost
+        from .sampler.device_sampler import MeshDeviceSampler
+
+        if is_model_sharded(mesh):
+            raise ValueError("--steps_per_dispatch > 1 is written for the 1-D row "
+                             "shard; use per-step training with --model_shards")
+        ShardedTrainer.__init__(self, spec, tspec, params, lr=lr, warm_up_steps=warm_up_steps,
+                                mesh=mesh, init_step=init_step, spmd_mode="shardmap")
+        index_subset = (multihost.host_shard_of_indices(len(train))
+                        if multihost.process_count() > 1 else None)
+
+        def sampler(mode, seed, shared_state):
+            return MeshDeviceSampler(train, spec.nentity, spec.nrelation, tspec.batch_size,
+                                     tspec.negative_sample_size, mode, mesh, seed=seed,
+                                     negative_sharing=negative_sharing,
+                                     index_subset=index_subset, shared_state=shared_state)
+
+        self._init_blocks(sampler, seed, negative_sharing, block_capacity, record_batches)
+
+    def _train(self, pos, neg, w, mode: str) -> Dict[str, torch.Tensor]:
+        return shardmap_train_step(self.params, self.opt_state, pos, neg, w, self.lr_tensor,
+                                   spec=self.spec, tspec=self.tspec, mesh=self.mesh, mode=mode)

@@ -317,14 +317,20 @@ def near_tie_counts(left, true_score, true_ids, table, mask, *, family: str,
     return count
 
 
-def _check(name, t, dtypes, ndim, device):
+def _check(name, t, dtypes, ndim, device, rows_strided=False):
+    """Device, dtype and rank of one operand, and its layout: contiguous,
+    or with ``rows_strided`` unit column stride and any row stride (a
+    column window of a wider mask)."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype not in dtypes:
         raise TypeError(f"{name} has dtype {t.dtype}, expected one of {dtypes}")
     if t.dim() != ndim:
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {ndim} dims")
-    if not t.is_contiguous():
+    if rows_strided:
+        if t.shape[1] > 1 and t.stride(1) != 1:
+            raise ValueError(f"{name} must have unit column stride, has strides {t.stride()}")
+    elif not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
 
 
@@ -336,7 +342,9 @@ def rank_counts(left, true_score, true_ids, table, mask, *, family: str,
 
     left f32[B, D]; true_score f32[B]; true_ids i32[B]; table f32[>=E, D]
     (RotatE: re | im halves; pRotatE: sin | cos halves of the phases);
-    mask bool/u8[B, W >= E], row-major; modulus f32[] (pRotatE only, read
+    mask bool/u8[B, W >= E], unit column stride and any row stride (a
+    column window of a wider mask reaches the kernel as it is); modulus
+    f32[] (pRotatE only, read
     on the device). CUDA tensors launch the kernel; CPU tensors run
     ``rank_counts_ref``."""
     if family not in FAMILIES:
@@ -360,7 +368,7 @@ def rank_counts(left, true_score, true_ids, table, mask, *, family: str,
     _check("true_score", true_score, (torch.float32,), 1, device)
     _check("true_ids", true_ids, (torch.int32,), 1, device)
     _check("table", table, (torch.float32,), 2, device)
-    _check("mask", mask, (torch.bool, torch.uint8), 2, device)
+    _check("mask", mask, (torch.bool, torch.uint8), 2, device, rows_strided=True)
     if modulus is not None:
         _check("modulus", modulus, (torch.float32,), 0, device)
     B, D = left.shape

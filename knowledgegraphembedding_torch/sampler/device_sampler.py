@@ -39,8 +39,15 @@ generator written in int64 torch ops, so it
 
 Shared negatives (``--negative_sharing batch``) build no CSR: a batch draws
 one unfiltered ``[1, n]`` row, the same generator's bits for (seed, mode,
-draw index, slot) reduced by the modulus E. The mesh sampler
-(``MeshDeviceSampler``) waits for ROADMAP Queue 1, item 14.
+draw index, slot) reduced by the modulus E.
+
+On a mesh (``MeshDeviceSampler``) each rank draws its own rows of the
+global batch on its device: the host's epoch stream gives the host's
+indices, the rank keeps its rows of them, and the rank folds into the
+counter the global index of its first element, so its draws are those of
+the global batch's rows on one device (distinct per rank, and the same
+integers at any mesh size). A shared row keeps the unfolded counter, the
+same ``[1, n]`` on every rank.
 """
 
 from __future__ import annotations
@@ -269,7 +276,7 @@ class DeviceSampler:
     def __init__(self, triples: np.ndarray, nentity: int, nrelation: int, batch_size: int,
                  negative_sample_size: int, mode: str, seed: int = 0,
                  negative_sharing: str = "none", index_subset=None, shared_state=None,
-                 device="cpu"):
+                 device="cpu", counter_offset: int = 0):
         if mode not in (HEAD_BATCH, TAIL_BATCH):
             raise ValueError(f"mode must be {HEAD_BATCH!r} or {TAIL_BATCH!r}, got {mode!r}")
         if negative_sharing not in ("none", "batch"):
@@ -279,7 +286,7 @@ class DeviceSampler:
         if len(triples) == 0:
             raise ValueError("empty train split — nothing to sample")
         validate_key_space(nentity, nrelation, negative_sharing)
-        if batch_size * negative_sample_size >= 2**32:
+        if counter_offset + batch_size * negative_sample_size > 2**32:
             raise ValueError("a batch's B*n draws must have 32-bit element counters")
         self.device = torch.device(device)
         self.mode = mode
@@ -300,8 +307,8 @@ class DeviceSampler:
             *build_mode_csr(triples, nentity, nrelation, mode), device=self.device)
         self.keys = round_keys(seed, mode)
         rows = 1 if shared else batch_size
-        self.counter = torch.arange(rows * self.n, dtype=torch.int64,
-                                    device=self.device).view(rows, self.n)
+        self.counter = torch.arange(counter_offset, counter_offset + rows * self.n,
+                                    dtype=torch.int64, device=self.device).view(rows, self.n)
         self.draws = torch.zeros((), dtype=torch.int64, device=self.device)
         self._stream = _EpochIndexStream(self.n_train, index_subset, seed, batch_size)
 
@@ -365,3 +372,55 @@ def build_device_iterator(train: np.ndarray, nentity: int, nrelation: int, batch
                          device=device)
     return DeviceBidirectionalIterator(head, tail, depth=depth)
 
+
+
+class MeshDeviceSampler(DeviceSampler):
+    """A rank's device sampler on a 1-D mesh (JAX ``MeshDeviceSampler``):
+    it draws rows ``multihost.local_rows`` of each global batch on the
+    rank's device. The host stream is the host's epoch permutation over its
+    edge-partition shard (``index_subset``) at the host batch size, seeded
+    ``seed + 7919 * host``, as the JAX sampler's; the draws are keyed by
+    ``seed`` alone, the rank folded into the counter."""
+
+    def __init__(self, triples: np.ndarray, nentity: int, nrelation: int, batch_size: int,
+                 negative_sample_size: int, mode: str, mesh, seed: int = 0,
+                 negative_sharing: str = "none", index_subset=None, shared_state=None):
+        from ..parallel import multihost, sharding
+
+        n_data, n_proc = sharding.data_size(mesh), multihost.process_count()
+        if batch_size % n_data:
+            raise ValueError(f"global batch {batch_size} not divisible by the "
+                             f"{n_data}-device mesh")
+        if batch_size % n_proc:
+            raise ValueError(f"global batch {batch_size} not divisible by {n_proc} hosts")
+        if batch_size * negative_sample_size > 2**32:
+            raise ValueError("a batch's B*n draws must have 32-bit element counters")
+        local_b = batch_size // n_data
+        self._rows = multihost.local_rows(mesh, batch_size)
+        offset = 0 if negative_sharing == "batch" else (
+            sharding.data_index(mesh) * local_b * negative_sample_size)
+        super().__init__(triples, nentity, nrelation, local_b, negative_sample_size, mode,
+                         seed=seed, negative_sharing=negative_sharing, shared_state=shared_state,
+                         device=sharding.mesh_device(mesh), counter_offset=offset)
+        self._stream = _EpochIndexStream(self.n_train, index_subset,
+                                         seed + 7919 * multihost.process_index(),
+                                         batch_size // n_proc)
+
+    def _next_indices(self) -> np.ndarray:
+        return self._stream.next()[self._rows]
+
+
+def build_mesh_device_iterator(mesh, train: np.ndarray, nentity: int, nrelation: int,
+                               batch_size: int, negative_sample_size: int, seed: int = 0,
+                               negative_sharing: str = "none", depth: int = 2,
+                               index_subset=None) -> DeviceBidirectionalIterator:
+    """The tail-first pair of mesh samplers (head ``seed``, tail
+    ``seed + 1``), each rank's batches its own rows on its device."""
+    head = MeshDeviceSampler(train, nentity, nrelation, batch_size, negative_sample_size,
+                             HEAD_BATCH, mesh, seed=seed, negative_sharing=negative_sharing,
+                             index_subset=index_subset)
+    tail = MeshDeviceSampler(train, nentity, nrelation, batch_size, negative_sample_size,
+                             TAIL_BATCH, mesh, seed=seed + 1, negative_sharing=negative_sharing,
+                             index_subset=index_subset,
+                             shared_state=(head.triples, head.weights))
+    return DeviceBidirectionalIterator(head, tail, depth=depth)

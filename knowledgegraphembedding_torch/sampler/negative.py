@@ -42,11 +42,20 @@ class TrainSampler:
     ``negative_sharing='batch'``: one uniform, unfiltered ``[1, n]`` draw a
     batch, shared by every positive (PBG-style; the false-negative rate is
     the average true-set size over E), drawn from the same generator after
-    the batch's epoch indices, as the JAX package draws it."""
+    the batch's epoch indices, as the JAX package draws it.
+
+    Fleets (JAX ``negative.py:78-122``): ``index_subset`` restricts the epoch
+    permutation to this host's rows of the train split (edge partitioning;
+    weights and the rejection filter stay over the FULL split), and
+    ``shared_negative_seed`` draws the shared rows from a generator of their
+    own, seeded alike on every host, because every rank holds the same
+    replicated row."""
 
     def __init__(self, triples: np.ndarray, nentity: int, nrelation: int,
                  batch_size: int, negative_sample_size: int, mode: str,
-                 seed: int = 0, backend: str = "auto", negative_sharing: str = "none"):
+                 seed: int = 0, backend: str = "auto", negative_sharing: str = "none",
+                 index_subset: Optional[np.ndarray] = None,
+                 shared_negative_seed: Optional[int] = None):
         if mode not in (HEAD_BATCH, TAIL_BATCH):
             raise ValueError(f"mode must be {HEAD_BATCH!r} or {TAIL_BATCH!r}, got {mode!r}")
         if backend not in ("auto", "native", "numpy"):
@@ -72,8 +81,13 @@ class TrainSampler:
         self.n = negative_sample_size
         self.mode = mode
         self.rng = np.random.default_rng(seed)
+        self._shared_neg_rng = (np.random.default_rng(shared_negative_seed)
+                                if shared_negative_seed is not None else self.rng)
         self.weights = subsampling_weights(self.triples, nrelation)
-        self._index_pool = np.arange(len(self.triples), dtype=np.int64)
+        self._index_pool = (np.asarray(index_subset, np.int64) if index_subset is not None
+                            else np.arange(len(self.triples), dtype=np.int64))
+        if len(self._index_pool) == 0:
+            raise ValueError("empty train-stream shard — nothing to sample")
         self._order = np.empty(0, np.int64)
         # train-true set, encoded for one sorted membership test:
         # tail-batch key (h, r) -> (h*R + r)*E + t; head-batch (r, t) -> (r*E + t)*E + h
@@ -103,7 +117,8 @@ class TrainSampler:
         idx = self._next_indices()
         pos = self.triples[idx]
         if self.negative_sharing == "batch":
-            neg = self.rng.integers(0, self.nentity, size=(1, self.n)).astype(np.int32)
+            neg = self._shared_neg_rng.integers(0, self.nentity,
+                                                size=(1, self.n)).astype(np.int32)
         else:
             neg = self._sample_negatives_batch(pos)
         return pos, neg, self.weights[idx], self.mode
@@ -255,27 +270,34 @@ def build_train_iterator(train: np.ndarray, nentity: int, nrelation: int,
                          batch_size: int, negative_sample_size: int, seed: int = 0,
                          prefetch_depth: int = 4, backend: str = "auto",
                          device: Optional[torch.device] = None,
-                         negative_sharing: str = "none"):
+                         negative_sharing: str = "none",
+                         index_subset: Optional[np.ndarray] = None,
+                         shared_negative_seed: Optional[int] = None):
     """The two samplers of codes/run.py §main (head-batch seeded ``seed``,
     tail-batch ``seed + 1``), alternated, behind a prefetch queue when
     ``prefetch_depth > 0``; ``device`` (CUDA) uploads from that queue.
     ``backend='device'`` builds the device-resident sampler
     (``device_sampler.py``) on ``device`` (the CPU when None), whose
     lookahead queue holds ``prefetch_depth // 2`` batches (at least one).
-    ``negative_sharing='batch'`` draws one shared ``[1, n]`` row a batch."""
+    ``negative_sharing='batch'`` draws one shared ``[1, n]`` row a batch.
+    ``index_subset`` and ``shared_negative_seed``: a fleet host's stream
+    (``TrainSampler``)."""
     if backend == "device":
         from .device_sampler import build_device_iterator
 
         return build_device_iterator(
             train, nentity, nrelation, batch_size, negative_sample_size, seed=seed,
             negative_sharing=negative_sharing, depth=max(1, prefetch_depth // 2),
+            index_subset=index_subset,
             device=device if device is not None else torch.device("cpu"))
+    kw = dict(backend=backend, negative_sharing=negative_sharing, index_subset=index_subset)
     head = TrainSampler(train, nentity, nrelation, batch_size, negative_sample_size,
-                        HEAD_BATCH, seed=seed, backend=backend,
-                        negative_sharing=negative_sharing)
+                        HEAD_BATCH, seed=seed, shared_negative_seed=shared_negative_seed,
+                        **kw)
     tail = TrainSampler(train, nentity, nrelation, batch_size, negative_sample_size,
-                        TAIL_BATCH, seed=seed + 1, backend=backend,
-                        negative_sharing=negative_sharing)
+                        TAIL_BATCH, seed=seed + 1,
+                        shared_negative_seed=(None if shared_negative_seed is None
+                                              else shared_negative_seed + 1), **kw)
     it = BidirectionalIterator(head, tail)
     if prefetch_depth > 0:
         return PrefetchIterator(it, depth=prefetch_depth, device=device)

@@ -52,11 +52,10 @@ def use_dense_scoring(spec: ModelSpec, tspec: TrainSpec) -> bool:
     return spec.nentity <= 100 * tspec.negative_sample_size
 
 
-def loss_and_logs(params: kge.Params, spec: ModelSpec, tspec: TrainSpec,
-                  pos: torch.Tensor, neg: torch.Tensor, weight: torch.Tensor,
-                  mode: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """The loss of one batch: pos [B, 3], neg [B, n] (or one shared row
-    [1, n]), weight [B]."""
+def batch_scores(params: kge.Params, spec: ModelSpec, tspec: TrainSpec, pos: torch.Tensor,
+                 neg: torch.Tensor, mode: str) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(positive [B, 1], negative [B, n]) scores of one batch: pos [B, 3],
+    neg [B, n] or one shared row [1, n]."""
     compute_dtype = torch.bfloat16 if tspec.precision == "bf16" else None
     if use_dense_scoring(spec, tspec):
         # in the params' dtype unless bf16 is asked for, as the JAX package
@@ -73,7 +72,15 @@ def loss_and_logs(params: kge.Params, spec: ModelSpec, tspec: TrainSpec,
             use_reentrant=False, preserve_rng_state=False)
     else:
         negative_score = kge.forward(params, spec, (pos, neg), mode, compute_dtype)
-    positive_score = kge.forward(params, spec, pos, scorers.SINGLE, compute_dtype)
+    return kge.forward(params, spec, pos, scorers.SINGLE, compute_dtype), negative_score
+
+
+def loss_and_logs(params: kge.Params, spec: ModelSpec, tspec: TrainSpec,
+                  pos: torch.Tensor, neg: torch.Tensor, weight: torch.Tensor,
+                  mode: str) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """The loss of one batch: pos [B, 3], neg [B, n] (or one shared row
+    [1, n]), weight [B]."""
+    positive_score, negative_score = batch_scores(params, spec, tspec, pos, neg, mode)
     loss, logs = loss_ops.kge_loss(positive_score, negative_score, weight, tspec)
     if tspec.regularization != 0.0:
         reg = loss_ops.l3_regularization(params, tspec.regularization)

@@ -2,9 +2,10 @@
 CLI (the tiny RotatE run of the verify recipe) is evaluated by both CLIs with
 ``--do_test -init`` and must give the same Test metrics; both CLIs train the
 same step-0 checkpoint on the same sampler stream with ``--do_train
---do_valid --do_test`` and must log the same loss windows and Test metrics;
-flags of work not ported yet (multi-device runs) are refused, while
-``--profile_dir``, ``--no-async_checkpoint`` and the inert
+--do_valid --do_test`` and must log the same loss windows and Test metrics,
+one device or a mesh (``--num_shards 2`` under each ``--spmd_mode``, and
+``--num_shards 2 --model_shards 2``: gloo ranks against the JAX CLI's CPU
+devices); ``--profile_dir``, ``--no-async_checkpoint`` and the inert
 ``--sharded_checkpoint`` run and leave the metrics as they were; the
 platform flag never falls back to the CPU. The fused and device-sampler flows are in
 tests/test_torch_fused_train.py, countries in tests/test_torch_countries.py."""
@@ -71,20 +72,50 @@ def test_do_valid_and_evaluate_train_match_jax(jax_run):
     # a host sampler cannot feed a fused block: the JAX CLI's ValueError
     (["--do_train", "-save", "s", "--steps_per_dispatch", "2", "--sampler_backend", "native"],
      ValueError, "cannot feed a fused block"),
-    (["--do_test", "--num_shards", "2"], NotImplementedError, "item 14"),
-    (["--do_test", "--model_shards", "2"], NotImplementedError, "item 14"),
-    (["--do_test", "--multihost"], NotImplementedError, "item 14"),
 ])
 def test_unported_flags_are_refused(argv, exc, item, tmp_path):
-    """Flags of work not ported yet, and the JAX CLI's refusal of a fused
-    block fed by a host sampler (the same ValueError in both CLIs, raised
-    after the log file opens in the save directory)."""
+    """The JAX CLI's refusal of a fused block fed by a host sampler (the
+    same ValueError in both CLIs, raised after the log file opens in the
+    save directory)."""
     argv = [str(tmp_path / a) if a == "s" else a for a in argv]
     with pytest.raises(exc, match=item):
         t_cli.main(argv + ["--data_path", "synthetic:clustered", "--platform", "cpu"])
     if exc is ValueError:
         with pytest.raises(exc, match=item):
             j_cli.main(argv + ["--data_path", "synthetic:clustered", "--platform", "cpu"])
+
+
+@pytest.mark.parametrize("extra,msg", [
+    ([], "coordinator_address should be defined"),
+    (["--num_shards", "2"], "coordinator_address should be defined"),
+    (["--coordinator_address", "127.0.0.1:1"], "together"),
+], ids=["bare", "num_shards", "no-num_processes"])
+def test_multihost_without_a_fleet_raises(extra, msg, monkeypatch):
+    """An explicit --multihost with neither all three fleet flags nor a
+    torchrun environment raises before any rank starts, as the JAX CLI's
+    ``initialize(require=True)`` does; it never trains alone as process 0.
+    The JAX CLI runs in a fresh process: its check needs an uninitialised
+    XLA backend."""
+    import subprocess
+    import sys
+
+    from knowledgegraphembedding_torch.parallel import multihost as t_mh
+
+    for k in ("RANK", "WORLD_SIZE", "MASTER_ADDR", "MASTER_PORT"):
+        monkeypatch.delenv(k, raising=False)
+    monkeypatch.setattr(t_mh, "launch", lambda *a: pytest.fail("a rank started"))
+    argv = ["--do_test", "--multihost", "--data_path", "synthetic:clustered", "--platform",
+            "cpu", *extra]
+    with pytest.raises(ValueError, match=msg):
+        t_cli.main(argv)
+    if msg.startswith("coordinator"):
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        out = subprocess.run(
+            [sys.executable, "-c", "import sys; from knowledgegraphembedding_tpu import cli; "
+             "cli.main(sys.argv[1:])", *argv], cwd=root, capture_output=True, text=True,
+            env=dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=root), timeout=120)
+        assert out.returncode != 0
+        assert "ValueError: " + msg in out.stderr, out.stderr[-2000:]
 
 
 @pytest.mark.parametrize("flag", [["--profile_dir", "p"], ["--no-async_checkpoint"],
@@ -298,5 +329,45 @@ def test_do_train_variants_match_jax_cli(jax_run, tmp_path, variant):
     got = t_cli.main(argv + ["-save", t_save, "--platform", "cpu"])
     assert len(_windows(t_save)) == 3
     np.testing.assert_allclose(_windows(t_save), _windows(j_save), rtol=0, atol=atol)
+    again = t_cli.main(["--do_test", "-init", t_save, "--platform", "cpu"])
+    assert again["test"] == got["test"]
+
+
+MESH_RUNS = {
+    "gspmd": ["--num_shards", "2", "--spmd_mode", "gspmd"],
+    "shardmap": ["--num_shards", "2", "--spmd_mode", "shardmap"],
+    "routed": ["--num_shards", "2", "--spmd_mode", "routed"],
+    "2x2": ["--num_shards", "2", "--model_shards", "2"],
+}
+
+
+@pytest.mark.parametrize("run", MESH_RUNS)
+def test_mesh_flags_match_jax_cli(jax_run, tmp_path, run):
+    """The mesh flags through both CLIs from one step-0 checkpoint, on the
+    numpy sampler: the port's gloo ranks and the JAX CLI's mesh of CPU
+    devices log loss windows within 1e-4 (f32 op-order noise, as
+    test_do_train_matches_jax_cli) and the same Test metrics, and the
+    port's ``-init`` rerun on one device reproduces its own."""
+    data_dir = jax_run[0]
+    init = str(tmp_path / "init")
+    cfg = TRunConfig(model="RotatE", double_entity_embedding=True, hidden_dim=8, gamma=4.0,
+                     data_path=data_dir, learning_rate=0.01)
+    tds = t_registry.load(data_dir)
+    cfg.nentity, cfg.nrelation = tds.nentity, tds.nrelation
+    params = t_kge.init_params(cfg.model_spec(), torch.Generator().manual_seed(3), device="cpu")
+    t_ckpt.save_initial_checkpoint(params, cfg, init, warm_up_steps=10)
+    argv = ["--do_train", "--do_test", "-init", init, "-n", "8", "-b", "32", "-adv", "-lr",
+            "0.01", "--max_steps", "20", "--log_steps", "10", "--save_checkpoint_steps", "20",
+            "--test_batch_size", "4", "--sampler_backend", "numpy", *MESH_RUNS[run]]
+    j_save, t_save = str(tmp_path / "jax"), str(tmp_path / "port")
+    want = j_cli.main(argv + ["-save", j_save])
+    got = t_cli.main(argv + ["-save", t_save, "--platform", "cpu"])
+    assert len(_windows(t_save)) == 2
+    np.testing.assert_allclose(_windows(t_save), _windows(j_save), rtol=0, atol=1e-4)
+    assert got["test"] == want["test"]
+    with open(os.path.join(t_save, "train.log")) as f:
+        log = f.read()
+    assert "Change learning_rate to 0.001000 at step 10" in log
+    assert "SPMD mesh: " in log
     again = t_cli.main(["--do_test", "-init", t_save, "--platform", "cpu"])
     assert again["test"] == got["test"]

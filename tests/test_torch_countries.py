@@ -73,8 +73,11 @@ def init(tmp_path_factory):
     return path
 
 
-def test_do_test_auc_pr_matches_jax_cli(init):
-    argv = ["--do_valid", "--do_test", "--countries", "-init", init]
+@pytest.mark.parametrize("mesh", [[], ["--num_shards", "2"]], ids=["one-device", "mesh"])
+def test_do_test_auc_pr_matches_jax_cli(init, mesh):
+    """From the step-0 checkpoint; with ``--num_shards 2`` the port's two
+    gloo ranks score the gathered tables (JAX's mesh: its host_params)."""
+    argv = ["--do_valid", "--do_test", "--countries", "-init", init, *mesh]
     want = j_cli.main(argv)
     got = t_cli.main(argv + ["--platform", "cpu"])
     assert set(got) == {"valid", "test"} and set(got["test"]) == {"auc_pr"}

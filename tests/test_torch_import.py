@@ -30,6 +30,15 @@ def test_roofline_and_dense_modules_are_scanned(mod):
     assert os.path.join("knowledgegraphembedding_torch", mod + ".py") in _port_sources()
 
 
+@pytest.mark.parametrize("mod", ["parallel/__init__", "parallel/sharding",
+                                 "parallel/shard_map_step", "parallel/routed_step",
+                                 "parallel/eval_sharded", "parallel/multihost"])
+def test_mesh_modules_are_scanned(mod):
+    """The multi-device modules (torch.distributed, never JAX) are among the
+    sources whose imports are checked, and the import walk loads them."""
+    assert os.path.join("knowledgegraphembedding_torch", mod + ".py") in _port_sources()
+
+
 def test_native_sources_build_from_the_port_only():
     """The port builds its own copy of the sampler source into its own
     _build/ directory, never the JAX package's."""

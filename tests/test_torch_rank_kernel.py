@@ -339,3 +339,22 @@ def test_synthetic_inputs_spread_the_counts(family):
     assert len(set(got.tolist())) > 3
     again, _ = rank_kernel.synthetic_inputs(family, 17, 37, 26 if family != "TransE" else 13)
     assert all(torch.equal(a, b) for a, b in zip(args, again))
+
+
+@pytest.mark.parametrize("offset", [0, 1, 15, 16])
+@pytest.mark.parametrize("family", rank_kernel.FAMILIES)
+def test_rank_counts_take_a_mask_column_window(family, offset):
+    """The sharded evaluation passes the columns [offset, offset + E) of a
+    wider mask, a view with unit column stride and a longer row stride; on
+    the CPU the wrapper counts over it as over its contiguous copy (the card
+    test in tests/test_torch_cuda.py holds the kernel to the same)."""
+    args, kw = rank_kernel.synthetic_inputs(family, 17, 37, 16, seed=offset)
+    left, true_score, true_ids, table, mask = args
+    wide = torch.cat([torch.ones(17, offset, dtype=torch.bool), mask,
+                      torch.ones(17, 16 - offset + 3, dtype=torch.bool)], dim=1)
+    window = wide[:, offset:offset + mask.shape[1]]
+    assert window.stride() == (wide.shape[1], 1) and torch.equal(window, mask)
+    got = rank_kernel.rank_counts(left, true_score, true_ids, table, window, **kw)
+    want = rank_kernel.rank_counts_ref(left, true_score, true_ids, table, mask.contiguous(), **kw)
+    assert torch.equal(got, want)
+    assert rank_kernel.rank_counts.launches == 0  # the plain version, no launch
