@@ -16,13 +16,18 @@ which equals the reference's argsort rank without materializing or sorting a
     instead of building a ``[B, W]`` mask.
 
 Filter masks come from the host CSR (``FilterSets.filter_mask_rows``) or are
-built on the device from a resident CSR (``DeviceFilter``). The countries
-datasets are scored by AUC-PR instead (``countries_auc_pr``).
+built on the device from a resident CSR (``DeviceFilter``). With the resident
+CSR a split is ranked in chunks of up to ``_SCAN_CHUNK`` batches, the
+counterparts of the JAX package's whole-evaluation scans
+(``_eval_scan_pallas``, ``_eval_scan_xla``): on CUDA each chunk body is
+captured once as a CUDA graph (``_ChunkGraph``) and every chunk replays it,
+so the host does O(1) work a chunk; on the CPU the body runs eagerly. The
+countries datasets are scored by AUC-PR instead (``countries_auc_pr``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -34,6 +39,9 @@ from .ops import matmul_scoring, rank_kernel
 
 #: bilinear models rank through dense matmul scoring
 DENSE_MODELS = matmul_scoring.DENSE_MODELS
+#: batches one scan chunk ranks (the JAX package's ``_SCAN_CHUNK``): one
+#: captured graph shape serves every split size
+_SCAN_CHUNK = 32
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -189,8 +197,11 @@ def _device_mask(pos, offsets, counts, values, *, k_max, mode, nentity,
     ids = torch.where(valid, windows.to(torch.int64), width - 1)
     rows = torch.arange(B, device=pos.device)
     mask = torch.zeros((B, width), dtype=torch.bool, device=pos.device)
-    mask[rows[:, None].expand(B, k_max), ids] = True
-    mask[rows, true_ids] = False  # the positive is never filtered
+    # the values as device tensors: a Python bool would be copied from the
+    # host, which a CUDA graph capture refuses
+    true, false = torch.ones((), dtype=torch.bool, device=pos.device), mask.new_zeros(())
+    mask.index_put_((rows[:, None].expand(B, k_max), ids), true)
+    mask.index_put_((rows, true_ids), false)  # the positive is never filtered
     return mask
 
 
@@ -214,6 +225,28 @@ def eff_eval_batch(spec: ModelSpec, test_batch_size: int) -> int:
     return max(test_batch_size, floor)
 
 
+def scan_plan(nb: int, log_every: int = _SCAN_CHUNK) -> Tuple[int, int]:
+    """(SC, n_scan): batches a scan chunk ranks, and the split's ``nb``
+    batches padded to whole chunks, as the JAX package plans them: at most
+    ``_SCAN_CHUNK`` batches a chunk and no more than ``log_every`` (the
+    single-device driver passes ``--test_log_steps``, 0 counting as 1, so
+    that the progress log keeps its cadence)."""
+    SC = min(nb, _SCAN_CHUNK, max(1, log_every))
+    return SC, _cdiv(nb, SC) * SC
+
+
+def scan_stack(triples: np.ndarray, eff_batch: int, n_scan: int, device) -> torch.Tensor:
+    """i64[n_scan, eff_batch, 3] on ``device``: the triples padded to whole
+    batches by repeating the last triple, then to ``n_scan`` batches by
+    repeating the last batch (the JAX package's pad rows and pad batches,
+    whose ranks are dropped)."""
+    trip = np.asarray(triples, np.int64)
+    nb = _cdiv(len(trip), eff_batch)
+    trip = np.concatenate([trip, np.repeat(trip[-1:], nb * eff_batch - len(trip), axis=0)])
+    trip = np.concatenate([trip, np.tile(trip[-eff_batch:], (n_scan - nb, 1))])
+    return torch.from_numpy(trip).to(device).reshape(n_scan, eff_batch, 3)
+
+
 def metrics_from_ranks(ranks) -> List[Dict[str, float]]:
     """Per-triple log dicts with the reference's names (codes/model.py ≈L370-380)."""
     out = []
@@ -227,6 +260,210 @@ def metrics_from_ranks(ranks) -> List[Dict[str, float]]:
             "HITS@10": 1.0 if rk <= 10 else 0.0,
         })
     return out
+
+
+def _eval_scan_kernel(ranker: rank_kernel.Ranker, offsets, counts, values,
+                      pos_stack: torch.Tensor, *, spec: ModelSpec, mode: str, k_max: int,
+                      width: int) -> torch.Tensor:
+    """i32[SC, B] ranks of the chunk ``pos_stack`` [SC, B, 3] through the
+    rank kernel (JAX ``_eval_scan_pallas``): per batch the device mask,
+    ``Ranker.inputs``, ``rank_counts`` and the +1."""
+    return torch.stack([
+        ranker.ranks(pos, _device_mask(pos, offsets, counts, values, k_max=k_max, mode=mode,
+                                       nentity=spec.nentity, nrelation=spec.nrelation,
+                                       width=width), mode)
+        for pos in pos_stack])
+
+
+def _eval_scan_plain(params: kge.Params, offsets, counts, values, pos_stack: torch.Tensor, *,
+                     spec: ModelSpec, mode: str, chunk: int, k_max: int,
+                     width: int) -> torch.Tensor:
+    """i32[SC, B] ranks of the chunk ``pos_stack`` [SC, B, 3] in plain
+    PyTorch ops (JAX ``_eval_scan_xla``): the bilinear models through
+    ``dense_ranks_window``, the distance family through the device mask and
+    ``ranks_batch``."""
+    def body(pos):
+        if spec.model_name in DENSE_MODELS:
+            return dense_ranks_window(params, pos, offsets, counts, values, spec=spec,
+                                      mode=mode, k_max=k_max)
+        mask = _device_mask(pos, offsets, counts, values, k_max=k_max, mode=mode,
+                            nentity=spec.nentity, nrelation=spec.nrelation, width=width)
+        return ranks_batch(params, pos, mask, spec=spec, mode=mode, chunk=chunk)
+    return torch.stack([body(pos) for pos in pos_stack])
+
+
+# The eval graphs of a device share one memory pool (each graph's scratch is
+# freed inside its capture, where the next capture reuses it; the graphs
+# replay one at a time on the caller's stream) and one side stream for
+# warm-up and capture. The fused trainer's graphs have their own.
+_graph_pools: dict = {}
+_side_streams: dict = {}
+
+
+class _ChunkGraph:
+    """One scan chunk body captured as a CUDA graph: a static [SC, B, 3]
+    input, a static i32 [SC, B] output, the rank-kernel launches the capture
+    recorded, and ``reads``: whatever the graph reads that its owner does
+    not hold, kept so that no storage it reads is freed and reused while it
+    lives.
+
+    Before the capture, ``warm`` runs eagerly on the side stream over the
+    first chunk: every op of the body but the rank kernel, whose one-time
+    setup it does instead (``rank_kernel.prepare``), so that the allocator,
+    cuBLAS, NCCL and the kernel's library are set up and no kernel launch is
+    counted; the capture runs nothing. A call copies a chunk in and replays the graph on the current
+    stream, and adds the recorded launches to ``rank_counts.launches``. A
+    failed capture raises; nothing runs eagerly in the graph's place."""
+
+    captures = 0  # graphs captured, all instances
+    replays = 0   # replays, all instances
+
+    def __init__(self, body: Callable, warm: Callable, first: torch.Tensor, reads=()):
+        device = first.device
+        index = device.index if device.index is not None else torch.cuda.current_device()
+        if index not in _side_streams:
+            _side_streams[index] = torch.cuda.Stream(device)
+            _graph_pools[index] = torch.cuda.graph_pool_handle()
+        side = _side_streams[index]
+        self.reads = reads
+        self.pos = first.clone()
+        cur = torch.cuda.current_stream(device)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            warm(self.pos)
+        before = rank_kernel.rank_counts.captured
+        self.graph = torch.cuda.CUDAGraph()
+        # thread_local: an asynchronous checkpoint's writer thread may be
+        # copying on its own stream meanwhile
+        with torch.cuda.graph(self.graph, pool=_graph_pools[index], stream=side,
+                              capture_error_mode="thread_local"):
+            self.out = body(self.pos)
+        cur.wait_stream(side)
+        self.launches = rank_kernel.rank_counts.captured - before
+        _ChunkGraph.captures += 1
+
+    def __call__(self, chunk: torch.Tensor) -> torch.Tensor:
+        """The body's output for ``chunk``, valid until the next call."""
+        self.pos.copy_(chunk)
+        self.graph.replay()
+        rank_kernel.rank_counts.launches += self.launches
+        _ChunkGraph.replays += 1
+        return self.out
+
+
+def chunk_runner(graphs: dict, key, body: Callable, warm: Callable, on_cuda: bool,
+                 reads=()) -> Callable:
+    """``body`` itself off CUDA; on CUDA, a callable that replays the graph
+    of ``body`` kept in ``graphs`` under ``key``, captured at its first
+    call (``_ChunkGraph``)."""
+    if not on_cuda:
+        return body
+
+    def run(chunk):
+        graph = graphs.get(key)
+        if graph is None:
+            graph = graphs[key] = _ChunkGraph(body, warm, chunk, reads)
+        return graph(chunk)
+    return run
+
+
+# Graphs of the plain and dense bodies, which read the params and the
+# resident CSR: one entry per (params at their versions, spec, DeviceFilter)
+# under the ranker cache's rule (rank_kernel.cached_on_params). An evicted
+# entry frees its graphs. The kernel body's graphs live on their Ranker.
+_plain_graphs: dict = {}
+
+
+@torch.no_grad()
+def _device_split_ranks(params: kge.Params, spec: ModelSpec, test_triples: np.ndarray,
+                        filters: FilterSets, *, test_batch_size: int, chunk: int,
+                        modes: Sequence[str], test_log_steps: int, logger, use_kernel: bool,
+                        per_batch: bool = False) -> np.ndarray:
+    """The device-filter ranks of a split, i64[len(modes), n], as the JAX
+    package's ``test_step`` drives its scans: the triples stacked on the
+    device in ``eff_eval_batch`` batches padded to whole chunks
+    (``scan_plan``, ``scan_stack``), one dispatch a chunk (on CUDA a graph
+    replay), the progress logged at JAX's cadence, the pad ranks dropped
+    and every rank pulled in one copy. ``per_batch``: one eager body a
+    batch, no pad batch and no graph (``_per_batch_ranks``)."""
+    device = params["entity_embedding"].device
+    n_real = len(test_triples)
+    dev_filter = get_device_filter(filters, device)
+    eff_batch = eff_eval_batch(spec, test_batch_size)
+    if eff_batch != test_batch_size and logger is not None:
+        logger.info(
+            "device eval path: batching %d triples per dispatch "
+            "(--test_batch_size %d kept for metrics; ranks are "
+            "per-triple so results are identical)",
+            eff_batch, test_batch_size,
+        )
+    nb = _cdiv(n_real, eff_batch)
+    log_every = max(1, test_log_steps)  # 0 must not zero the chunk or the cadence
+    SC, n_scan = (1, nb) if per_batch else scan_plan(nb, log_every)
+    trip_stack = scan_stack(test_triples, eff_batch, n_scan, device)
+    width = max(_cdiv(spec.nentity, chunk) * chunk, spec.nentity + 1)
+    graphed = device.type == "cuda" and not per_batch
+    if use_kernel:
+        ranker = rank_kernel.get_ranker(params, spec)
+        graphs, reads = ranker.graphs, (dev_filter,)
+    else:
+        graphs = rank_kernel.cached_on_params(_plain_graphs, params, (spec, id(dev_filter)),
+                                              lambda: (dev_filter, {}))[1]
+        reads = ()  # the cache entry holds the params and the DeviceFilter
+    total = n_real * len(modes)
+    ranks = torch.empty((len(modes), n_scan, eff_batch), dtype=torch.int32, device=device)
+    for m, mode in enumerate(modes):
+        offsets, counts, values, k_max = dev_filter._modes[mode]
+        csr = (offsets, counts, values)
+        kw = dict(spec=spec, mode=mode, k_max=k_max, width=width)
+        if use_kernel:
+            def body(pos_stack, csr=csr, kw=kw):
+                return _eval_scan_kernel(ranker, *csr, pos_stack, **kw)
+
+            def warm(pos_stack, csr=csr, mode=mode, k_max=k_max):
+                rank_kernel.prepare(device)
+                _device_mask(pos_stack[0], *csr, k_max=k_max, mode=mode, nentity=spec.nentity,
+                             nrelation=spec.nrelation, width=width)
+                ranker.inputs(pos_stack[0], mode)
+            key = (mode, SC, eff_batch, k_max, width, id(dev_filter))
+        else:
+            def body(pos_stack, csr=csr, kw=kw):
+                return _eval_scan_plain(params, *csr, pos_stack, chunk=chunk, **kw)
+
+            def warm(pos_stack, body=body):
+                body(pos_stack[:1])
+            key = (mode, SC, eff_batch, k_max, width, chunk)
+        run = chunk_runner(graphs, key, body, warm, graphed, reads)
+        last_logged = 0
+        for s in range(0, n_scan, SC):
+            ranks[m, s:s + SC].copy_(run(trip_stack[s:s + SC]))
+            done_b = min(s + SC, nb)
+            if logger is not None and (done_b // log_every > last_logged // log_every
+                                       or done_b == nb):
+                last_logged = done_b
+                done = min(done_b * eff_batch, n_real) + n_real * m
+                logger.info("Evaluating the model... (%d/%d)", done, total)
+    out = ranks.reshape(len(modes), n_scan * eff_batch)[:, :n_real].cpu()  # the one pull
+    return out.numpy().astype(np.int64)
+
+
+def _per_batch_ranks(params: kge.Params, spec: ModelSpec, test_triples: np.ndarray,
+                     filters: FilterSets, test_batch_size: int = 16,
+                     eval_chunk_size: int = 4096, use_kernel: Optional[bool] = None,
+                     modes: Sequence[str] = (scorers.HEAD_BATCH, scorers.TAIL_BATCH)
+                     ) -> np.ndarray:
+    """The device-filter ranks of a split with one eager chunk body a batch
+    and no graph (the loop that came before the scan), to hold the graphs'
+    ranks and pace against on the card. Nothing in the package calls it:
+    on CUDA, ``split_ranks`` replays graphs."""
+    on_cuda = params["entity_embedding"].device.type == "cuda"
+    if use_kernel is None:
+        use_kernel = on_cuda and spec.model_name not in DENSE_MODELS
+    return _device_split_ranks(params, spec, test_triples, filters,
+                               test_batch_size=test_batch_size,
+                               chunk=min(eval_chunk_size, spec.nentity), modes=modes,
+                               test_log_steps=1000, logger=None, use_kernel=use_kernel,
+                               per_batch=True)
 
 
 @torch.no_grad()
@@ -251,7 +488,9 @@ def split_ranks(
     bilinear models always rank through dense matmuls (True is refused).
     ``device_filter``: None uses the device-resident filter when the params
     are on CUDA and the key space is small enough (bilinear models then
-    rank by ``dense_ranks_window``); False paints masks on the host."""
+    rank by ``dense_ranks_window``), and ranks the split in scan chunks
+    (``_device_split_ranks``; on CUDA replayed from CUDA graphs); False
+    paints masks on the host and ranks batch by batch, as JAX does."""
     device = params["entity_embedding"].device
     on_cuda = device.type == "cuda"
     dense = spec.model_name in DENSE_MODELS
@@ -273,6 +512,11 @@ def split_ranks(
     if n_real == 0:
         return np.zeros((len(modes), 0), np.int64)
     chunk = min(eval_chunk_size, spec.nentity)
+    if device_filter:
+        return _device_split_ranks(params, spec, test_triples, filters,
+                                   test_batch_size=test_batch_size, chunk=chunk, modes=modes,
+                                   test_log_steps=test_log_steps, logger=logger,
+                                   use_kernel=use_kernel)
     ranker = rank_kernel.get_ranker(params, spec) if use_kernel else None
 
     def rank(pos, mask, mode):
@@ -282,39 +526,6 @@ def split_ranks(
 
     total = n_real * len(modes)
     out: List[torch.Tensor] = []
-    if device_filter:
-        dev_filter = get_device_filter(filters, device)
-        eff_batch = eff_eval_batch(spec, test_batch_size)
-        if eff_batch != test_batch_size and logger is not None:
-            logger.info(
-                "device eval path: batching %d triples per dispatch "
-                "(--test_batch_size %d kept for metrics; ranks are "
-                "per-triple so results are identical)",
-                eff_batch, test_batch_size,
-            )
-        n_pad = _cdiv(n_real, eff_batch) * eff_batch
-        trip = np.asarray(test_triples, np.int64)
-        if n_pad != n_real:
-            trip = np.concatenate([trip, np.repeat(trip[-1:], n_pad - n_real, axis=0)])
-        trip_stack = torch.from_numpy(trip).to(device).reshape(-1, eff_batch, 3)
-        nb = trip_stack.shape[0]
-        width = max(_cdiv(spec.nentity, chunk) * chunk, spec.nentity + 1)
-        log_every = max(1, test_log_steps)
-        for m, mode in enumerate(modes):
-            offsets, counts, values, k_max = dev_filter._modes[mode]
-            for b in range(nb):
-                pos = trip_stack[b]
-                if dense:
-                    out.append(dense_ranks_window(params, pos, offsets, counts, values,
-                                                  spec=spec, mode=mode, k_max=k_max))
-                else:
-                    out.append(rank(pos, dev_filter.mask_rows(pos, mode, width), mode))
-                if logger is not None and ((b + 1) % log_every == 0 or b + 1 == nb):
-                    done = min((b + 1) * eff_batch, n_real) + n_real * m
-                    logger.info("Evaluating the model... (%d/%d)", done, total)
-        ranks = torch.cat(out).cpu().numpy().reshape(len(modes), n_pad)
-        return ranks[:, :n_real].astype(np.int64)
-
     done = 0
     for mode in modes:
         for i in range(0, n_real, test_batch_size):

@@ -390,6 +390,8 @@ def rank_counts(left, true_score, true_ids, table, mask, *, family: str,
     zeroed = torch.zeros(B + plan.grid[0], dtype=torch.int32, device=device)
     out, handed = zeroed[:B], zeroed[B:]
     lib = _library(device)
+    # inside torch.cuda.graph, the capture stream (its device is made the
+    # current one): the launch is recorded into the graph, not run
     stream = torch.cuda.current_stream(device).cuda_stream
     args = (_FAMILY_CODE[family], left.data_ptr(), true_score.data_ptr(),
             true_ids.data_ptr(), table.data_ptr(), mask.data_ptr(),
@@ -398,15 +400,31 @@ def rank_counts(left, true_score, true_ids, table, mask, *, family: str,
             plan.smem_bytes, plan.chunks, plan.tiles, int(plan.vec16), stream)
     if device.index is None or device.index == torch.cuda.current_device():
         err = lib.rank_counts_launch(*args)
+        capturing = torch.cuda.is_current_stream_capturing()
     else:
         with torch.cuda.device(device):
             err = lib.rank_counts_launch(*args)
+            capturing = torch.cuda.is_current_stream_capturing()
     _raise(lib, err, "rank_counts kernel launch")
-    rank_counts.launches += 1
+    if capturing:
+        rank_counts.captured += 1
+    else:
+        rank_counts.launches += 1
     return out
 
 
+#: kernels that ran on the card (a graph's replay adds the launches its
+#: capture recorded), and launches recorded into graphs, which ran none
 rank_counts.launches = 0
+rank_counts.captured = 0
+
+
+def prepare(device: torch.device) -> None:
+    """The one-time setup of a launch on ``device`` (the library loaded and
+    its shared-memory attribute set, the SM count read), so that a launch
+    inside a graph capture makes no call but the launch."""
+    _library(device)
+    _sm_count(device)
 
 
 def left_from_rows(fixed, r, spec: ModelSpec, mode: str):
@@ -446,7 +464,8 @@ class Ranker:
     [E, 2d] = sin | cos of every candidate phase (``table * pi/range``, the
     JAX ``_prep_sincos``), so its ranks hold only for the weights of this
     moment: build a new ranker after the weights change (``get_ranker``
-    does)."""
+    does). ``graphs`` holds the CUDA graphs of the evaluation's scan chunks
+    that read this ranker's tables (``eval._ChunkGraph``): they die with it."""
 
     @torch.no_grad()
     def __init__(self, params, spec: ModelSpec):
@@ -461,6 +480,7 @@ class Ranker:
             self.table = torch.cat([torch.sin(phase), torch.cos(phase)], dim=1)
         else:
             self.table = self.ent.contiguous()
+        self.graphs: dict = {}
 
     @torch.no_grad()
     def inputs(self, pos: torch.Tensor, mode: str):
@@ -506,20 +526,28 @@ def _params_key(params):
     return tuple((k, id(v), v._version) for k, v in sorted(params.items()))
 
 
-def get_ranker(params, spec: ModelSpec) -> Ranker:
-    key = (_params_key(params), spec)
+def cached_on_params(cache: dict, params, extra, build):
+    """The value in ``cache`` for ``params`` at their current versions and
+    ``extra`` (hashable), made by ``build()`` on a miss, under the rule of
+    the ranker cache above: an entry of the same tensors at another version
+    or ``extra`` is dropped, at most ``_RANKER_CACHE_MAX`` entries are kept
+    (the oldest goes), and each entry holds its params."""
+    key = (_params_key(params), extra)
     ids = tuple(k[:2] for k in key[0])
-    for old in [k for k in _ranker_cache
-                if k != key and tuple(x[:2] for x in k[0]) == ids]:
-        del _ranker_cache[old]  # the same tables at an older version
-    got = _ranker_cache.get(key)
+    for old in [k for k in cache if k != key and tuple(x[:2] for x in k[0]) == ids]:
+        del cache[old]  # the same tables at an older version
+    got = cache.get(key)
     if got is not None:
         return got[1]
-    ranker = Ranker(params, spec)
-    while len(_ranker_cache) >= _RANKER_CACHE_MAX:
-        _ranker_cache.pop(next(iter(_ranker_cache)))
-    _ranker_cache[key] = (dict(params), ranker)
-    return ranker
+    value = build()
+    while len(cache) >= _RANKER_CACHE_MAX:
+        cache.pop(next(iter(cache)))
+    cache[key] = (dict(params), value)
+    return value
+
+
+def get_ranker(params, spec: ModelSpec) -> Ranker:
+    return cached_on_params(_ranker_cache, params, spec, lambda: Ranker(params, spec))
 
 
 def ranks_batch_kernel(params, spec: ModelSpec, pos, filter_mask, mode: str):

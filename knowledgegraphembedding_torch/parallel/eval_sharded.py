@@ -23,10 +23,15 @@ inputs, the left rows L and the true score, as
     ``eval.dense_ranks_window`` restricted to the ids the block owns (JAX
     ``_ranks_body_window``); with host masks, the masked count.
 
-One ``all_reduce`` of the mode's ``[batches, B]`` counts ends the mode. On
-a 2-D ``(data, model)`` mesh the ranks of a ``model`` group first
-all-gather their column blocks of both tables, then count as on the 1-D
-mesh (JAX leaves this case to GSPMD).
+One ``all_reduce`` of the ``[batches, B]`` counts ends a call of
+``_Block.ranks``. With the device-resident filter a mode's batches go in
+chunks of up to ``eval._SCAN_CHUNK`` (JAX ``get_sharded_scan_fn``): each
+chunk is one call, the rows' gather, its batches and the counts' sum; on
+NCCL it is captured once as a CUDA graph (``eval._ChunkGraph``, the
+collectives inside) and replayed for every chunk, on gloo it runs eagerly.
+With host masks a mode is one call. On a 2-D ``(data, model)`` mesh the
+ranks of a ``model`` group first all-gather their column blocks of both
+tables, then count as on the 1-D mesh (JAX leaves this case to GSPMD).
 """
 
 from __future__ import annotations
@@ -73,11 +78,14 @@ def full_columns(local: torch.Tensor, group, n: int) -> torch.Tensor:
 
 
 class _Block:
-    """This rank's view of the table for one evaluation: its rows in the
-    kernel's layout, and the replicated inputs of each batch."""
+    """This rank's view of the table at one moment of its weights: its rows
+    in the kernel's layout, the replicated inputs of each batch, and the
+    CUDA graphs of its scan chunks (``graphs``), which die with it."""
 
     @torch.no_grad()
     def __init__(self, params, spec: ModelSpec, mesh):
+        self.mesh = mesh
+        self.graphs: dict = {}
         ent, rel = params[ENTITY].detach(), params["relation_embedding"].detach()
         if is_model_sharded(mesh):
             ent = full_columns(ent, model_group(mesh), model_size(mesh))
@@ -157,6 +165,25 @@ class _Block:
         dist.all_reduce(counts, op=dist.ReduceOp.SUM, group=self.group)
         return counts + 1
 
+    @torch.no_grad()
+    def warm(self, batches, mode: str, masks=None, window=None) -> None:
+        """Every op of ``ranks`` on the first batch of ``batches`` but the
+        rank kernel, the collectives included, and the kernel's one-time
+        setup (the warm-up before a capture: it sets up the allocator,
+        cuBLAS, the communicator and the kernel's library)."""
+        pos = batches[0]
+        if not self.dense:
+            rank_kernel.prepare(pos.device)
+        fixed, true_rows, true_ids = self.rows(pos, mode)
+        left, true_score = self.inputs(pos, fixed, true_rows, mode)
+        if self.dense:
+            self._dense_counts(left, true_score, true_ids, mode, pos,
+                               None if window else masks(0, pos), window)
+        elif masks is not None:
+            masks(0, pos)
+        dist.all_reduce(torch.zeros_like(true_ids, dtype=torch.int32), op=dist.ReduceOp.SUM,
+                        group=self.group)
+
     def _dense_counts(self, left, true_score, true_ids, mode, pos, mask, window):
         lo = self.offset
         dtype = self.table.dtype
@@ -183,6 +210,19 @@ class _Block:
                 - torch.sum(beats_f, dim=1, dtype=torch.int32))
 
 
+# one _Block per (params at their versions, spec, mesh), under the ranker
+# cache's rule (rank_kernel.cached_on_params): every evaluation of the same
+# weights (valid, test, train) reuses its table and graphs. Every rank of a
+# mesh makes the same lookups, so they build (a collective on a 2-D mesh)
+# together
+_block_cache: dict = {}
+
+
+def get_block(params, spec: ModelSpec, mesh) -> _Block:
+    return rank_kernel.cached_on_params(_block_cache, params, (spec, id(mesh)),
+                                        lambda: _Block(params, spec, mesh))
+
+
 @torch.no_grad()
 def sharded_split_ranks(params, spec: ModelSpec, test_triples: np.ndarray, filters: FilterSets,
                         mesh, test_batch_size: int = 16,
@@ -198,7 +238,7 @@ def sharded_split_ranks(params, spec: ModelSpec, test_triples: np.ndarray, filte
     n_real = len(test_triples)
     if n_real == 0:
         return np.zeros((len(modes), 0), np.int64)
-    block = _Block(params, spec, mesh)
+    block = get_block(params, spec, mesh)
     device = block.ent.device
     key_space = spec.nentity * spec.nrelation
     if device_filter is None:
@@ -208,23 +248,28 @@ def sharded_split_ranks(params, spec: ModelSpec, test_triples: np.ndarray, filte
                         "using host filter masks", key_space)
         device_filter = False
     width = max(block.padded, spec.nentity + 1)
-    out = []
     if device_filter:
         dev_filter = eval_mod.get_device_filter(filters, device)
         eff = eval_mod.eff_eval_batch(spec, test_batch_size)
-        n_pad = -(-n_real // eff) * eff
-        trip = np.asarray(test_triples, np.int64)
-        if n_pad != n_real:
-            trip = np.concatenate([trip, np.repeat(trip[-1:], n_pad - n_real, axis=0)])
-        stack = torch.from_numpy(trip).to(device).reshape(-1, eff, 3)
-        for mode in modes:
+        # JAX: chunks of min(nb, _SCAN_CHUNK) batches, no log cadence
+        SC, n_scan = eval_mod.scan_plan(-(-n_real // eff))
+        stack = eval_mod.scan_stack(test_triples, eff, n_scan, device)
+        ranks = torch.empty((len(modes), n_scan, eff), dtype=torch.int32, device=device)
+        for m, mode in enumerate(modes):
+            kw = dict(mode=mode)
             if block.dense:
-                out.append(block.ranks(stack, mode, window=dev_filter._modes[mode]))
+                kw["window"] = dev_filter._modes[mode]
             else:
-                out.append(block.ranks(
-                    stack, mode, masks=lambda b, pos: dev_filter.mask_rows(pos, mode, width)))
-        ranks = torch.stack(out).cpu().numpy().reshape(len(modes), n_pad)
-        return ranks[:, :n_real].astype(np.int64)
+                kw["masks"] = lambda b, pos, mode=mode: dev_filter.mask_rows(pos, mode, width)
+            key = (mode, SC, eff, dev_filter._modes[mode][3], width, id(dev_filter))
+            run = eval_mod.chunk_runner(
+                block.graphs, key, lambda chunk, kw=kw: block.ranks(chunk, **kw),
+                lambda chunk, kw=kw: block.warm(chunk, **kw), device.type == "cuda",
+                reads=(dev_filter,))
+            for s in range(0, n_scan, SC):
+                ranks[m, s:s + SC].copy_(run(stack[s:s + SC]))
+        ranks = ranks.reshape(len(modes), n_scan * eff)[:, :n_real].cpu()  # the one pull
+        return ranks.numpy().astype(np.int64)
     tb = test_batch_size
     nb = -(-n_real // tb)
     trip = np.asarray(test_triples, np.int64)
@@ -240,6 +285,7 @@ def sharded_split_ranks(params, spec: ModelSpec, test_triples: np.ndarray, filte
             return torch.from_numpy(m).to(device)
         return mask
 
+    out = []
     for mode in modes:
         ranks = block.ranks(torch.from_numpy(stack).to(device), mode, masks=host_masks(mode))
         out.append(ranks.reshape(-1)[torch.from_numpy(
