@@ -642,9 +642,7 @@ def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mo
         with profiling.trace(config.profile_dir, device):
             for step in range(trainer.step, config.max_steps):
                 pos, neg, w, mode = next(it)
-                with profiling.StepTimer("train_step"):
-                    logs = trainer.one_step((to_device(pos), to_device(neg), to_device(w),
-                                             mode))
+                logs = trainer.one_step((to_device(pos), to_device(neg), to_device(w), mode))
                 if log_acc is None:
                     log_keys = sorted(logs)
                     log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
@@ -719,7 +717,7 @@ def _run_fused_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_m
             if config.do_valid:
                 k = min(k, to_boundary(step0, config.valid_steps))
             k = trainer.max_block(k)
-            with profiling.StepTimer("train_block"):
+            with profiling.span("train_block"):
                 logs = trainer.run_block(k)  # sums over the k steps, on the device
             if log_acc is None:
                 log_keys = sorted(logs)

@@ -36,6 +36,7 @@ from .config import ModelSpec
 from .data.filterset import MAX_DENSE_KEYS, FilterSets, dense_key_arrays
 from .models import kge, scorers
 from .ops import matmul_scoring, rank_kernel
+from .utils import profiling
 
 #: bilinear models rank through dense matmul scoring
 DENSE_MODELS = matmul_scoring.DENSE_MODELS
@@ -319,6 +320,10 @@ class _ChunkGraph:
     replays = 0   # replays, all instances
 
     def __init__(self, body: Callable, warm: Callable, first: torch.Tensor, reads=()):
+        with profiling.span("eval.capture"):
+            self._capture(body, warm, first, reads)
+
+    def _capture(self, body: Callable, warm: Callable, first: torch.Tensor, reads) -> None:
         device = first.device
         index = device.index if device.index is not None else torch.cuda.current_device()
         if index not in _side_streams:
@@ -388,7 +393,6 @@ def _device_split_ranks(params: kge.Params, spec: ModelSpec, test_triples: np.nd
     batch, no pad batch and no graph (``_per_batch_ranks``)."""
     device = params["entity_embedding"].device
     n_real = len(test_triples)
-    dev_filter = get_device_filter(filters, device)
     eff_batch = eff_eval_batch(spec, test_batch_size)
     if eff_batch != test_batch_size and logger is not None:
         logger.info(
@@ -400,16 +404,20 @@ def _device_split_ranks(params: kge.Params, spec: ModelSpec, test_triples: np.nd
     nb = _cdiv(n_real, eff_batch)
     log_every = max(1, test_log_steps)  # 0 must not zero the chunk or the cadence
     SC, n_scan = (1, nb) if per_batch else scan_plan(nb, log_every)
-    trip_stack = scan_stack(test_triples, eff_batch, n_scan, device)
+    with profiling.span("eval.stack"):
+        trip_stack = scan_stack(test_triples, eff_batch, n_scan, device)
     width = max(_cdiv(spec.nentity, chunk) * chunk, spec.nentity + 1)
     graphed = device.type == "cuda" and not per_batch
-    if use_kernel:
-        ranker = rank_kernel.get_ranker(params, spec)
-        graphs, reads = ranker.graphs, (dev_filter,)
-    else:
-        graphs = rank_kernel.cached_on_params(_plain_graphs, params, (spec, id(dev_filter)),
-                                              lambda: (dev_filter, {}))[1]
-        reads = ()  # the cache entry holds the params and the DeviceFilter
+    with profiling.span("eval.lookup"):
+        dev_filter = get_device_filter(filters, device)
+        if use_kernel:
+            ranker = rank_kernel.get_ranker(params, spec)
+            graphs, reads = ranker.graphs, (dev_filter,)
+        else:
+            graphs = rank_kernel.cached_on_params(_plain_graphs, params,
+                                                  (spec, id(dev_filter)),
+                                                  lambda: (dev_filter, {}))[1]
+            reads = ()  # the cache entry holds the params and the DeviceFilter
     total = n_real * len(modes)
     ranks = torch.empty((len(modes), n_scan, eff_batch), dtype=torch.int32, device=device)
     for m, mode in enumerate(modes):
@@ -435,15 +443,17 @@ def _device_split_ranks(params: kge.Params, spec: ModelSpec, test_triples: np.nd
             key = (mode, SC, eff_batch, k_max, width, chunk)
         run = chunk_runner(graphs, key, body, warm, graphed, reads)
         last_logged = 0
-        for s in range(0, n_scan, SC):
-            ranks[m, s:s + SC].copy_(run(trip_stack[s:s + SC]))
-            done_b = min(s + SC, nb)
-            if logger is not None and (done_b // log_every > last_logged // log_every
-                                       or done_b == nb):
-                last_logged = done_b
-                done = min(done_b * eff_batch, n_real) + n_real * m
-                logger.info("Evaluating the model... (%d/%d)", done, total)
-    out = ranks.reshape(len(modes), n_scan * eff_batch)[:, :n_real].cpu()  # the one pull
+        with profiling.span("eval.enqueue"):
+            for s in range(0, n_scan, SC):
+                ranks[m, s:s + SC].copy_(run(trip_stack[s:s + SC]))
+                done_b = min(s + SC, nb)
+                if logger is not None and (done_b // log_every > last_logged // log_every
+                                           or done_b == nb):
+                    last_logged = done_b
+                    done = min(done_b * eff_batch, n_real) + n_real * m
+                    logger.info("Evaluating the model... (%d/%d)", done, total)
+    with profiling.span("eval.pull"):
+        out = ranks.reshape(len(modes), n_scan * eff_batch)[:, :n_real].cpu()  # the one pull
     return out.numpy().astype(np.int64)
 
 
@@ -490,57 +500,65 @@ def split_ranks(
     are on CUDA and the key space is small enough (bilinear models then
     rank by ``dense_ranks_window``), and ranks the split in scan chunks
     (``_device_split_ranks``; on CUDA replayed from CUDA graphs); False
-    paints masks on the host and ranks batch by batch, as JAX does."""
-    device = params["entity_embedding"].device
-    on_cuda = device.type == "cuda"
-    dense = spec.model_name in DENSE_MODELS
-    if dense and use_kernel:
-        raise rank_kernel.no_family(spec.model_name)
-    if use_kernel is None:
-        use_kernel = on_cuda and not dense
-    key_space = spec.nentity * spec.nrelation
-    if device_filter is None:
-        device_filter = on_cuda and key_space <= MAX_DENSE_KEYS
-    elif device_filter and key_space >= 2**31:
-        if logger is not None:
-            logger.warning(
-                "--eval_filter device: composite key space E*R = %d "
-                "exceeds int32; using host filter masks", key_space)
-        device_filter = False
+    paints masks on the host and ranks batch by batch, as JAX does.
 
-    n_real = len(test_triples)
-    if n_real == 0:
-        return np.zeros((len(modes), 0), np.int64)
-    chunk = min(eval_chunk_size, spec.nentity)
-    if device_filter:
-        return _device_split_ranks(params, spec, test_triples, filters,
-                                   test_batch_size=test_batch_size, chunk=chunk, modes=modes,
-                                   test_log_steps=test_log_steps, logger=logger,
-                                   use_kernel=use_kernel)
-    ranker = rank_kernel.get_ranker(params, spec) if use_kernel else None
+    Traced (``utils/profiling``) as the span ``eval.pass``."""
+    with profiling.span("eval.pass"):
+        device = params["entity_embedding"].device
+        on_cuda = device.type == "cuda"
+        dense = spec.model_name in DENSE_MODELS
+        if dense and use_kernel:
+            raise rank_kernel.no_family(spec.model_name)
+        if use_kernel is None:
+            use_kernel = on_cuda and not dense
+        key_space = spec.nentity * spec.nrelation
+        if device_filter is None:
+            device_filter = on_cuda and key_space <= MAX_DENSE_KEYS
+        elif device_filter and key_space >= 2**31:
+            if logger is not None:
+                logger.warning(
+                    "--eval_filter device: composite key space E*R = %d "
+                    "exceeds int32; using host filter masks", key_space)
+            device_filter = False
 
-    def rank(pos, mask, mode):
-        if ranker is not None:
-            return ranker.ranks(pos, mask, mode)
-        return ranks_batch(params, pos, mask, spec=spec, mode=mode, chunk=chunk)
+        n_real = len(test_triples)
+        if n_real == 0:
+            return np.zeros((len(modes), 0), np.int64)
+        chunk = min(eval_chunk_size, spec.nentity)
+        if device_filter:
+            return _device_split_ranks(params, spec, test_triples, filters,
+                                       test_batch_size=test_batch_size, chunk=chunk,
+                                       modes=modes, test_log_steps=test_log_steps,
+                                       logger=logger, use_kernel=use_kernel)
+        with profiling.span("eval.lookup"):
+            ranker = rank_kernel.get_ranker(params, spec) if use_kernel else None
 
-    total = n_real * len(modes)
-    out: List[torch.Tensor] = []
-    done = 0
-    for mode in modes:
-        for i in range(0, n_real, test_batch_size):
-            pos = np.asarray(test_triples[i:i + test_batch_size], np.int64)
-            B = pos.shape[0]
-            if B < test_batch_size:  # pad to the batch size, drop pad ranks
-                pos = np.concatenate([pos, np.repeat(pos[-1:], test_batch_size - B, axis=0)])
-            mask = torch.from_numpy(
-                _pad_mask(filters.filter_mask_rows(pos, mode), chunk)).to(device)
-            out.append(rank(torch.from_numpy(pos).to(device), mask, mode)[:B])
-            done += B
-            if logger is not None and (
-                    (done // test_batch_size) % max(1, test_log_steps) == 0):
-                logger.info("Evaluating the model... (%d/%d)", done, total)
-    return torch.cat(out).cpu().numpy().reshape(len(modes), n_real).astype(np.int64)
+        def rank(pos, mask, mode):
+            if ranker is not None:
+                return ranker.ranks(pos, mask, mode)
+            return ranks_batch(params, pos, mask, spec=spec, mode=mode, chunk=chunk)
+
+        total = n_real * len(modes)
+        out: List[torch.Tensor] = []
+        done = 0
+        for mode in modes:
+            for i in range(0, n_real, test_batch_size):
+                pos = np.asarray(test_triples[i:i + test_batch_size], np.int64)
+                B = pos.shape[0]
+                if B < test_batch_size:  # pad to the batch size, drop pad ranks
+                    pos = np.concatenate([pos, np.repeat(pos[-1:], test_batch_size - B,
+                                                         axis=0)])
+                with profiling.span("eval.masks"):
+                    mask = _pad_mask(filters.filter_mask_rows(pos, mode), chunk)
+                mask = torch.from_numpy(mask).to(device)
+                out.append(rank(torch.from_numpy(pos).to(device), mask, mode)[:B])
+                done += B
+                if logger is not None and (
+                        (done // test_batch_size) % max(1, test_log_steps) == 0):
+                    logger.info("Evaluating the model... (%d/%d)", done, total)
+        with profiling.span("eval.pull"):
+            ranks = torch.cat(out).cpu()
+        return ranks.numpy().reshape(len(modes), n_real).astype(np.int64)
 
 
 def test_step(params: kge.Params, spec: ModelSpec, test_triples: np.ndarray,

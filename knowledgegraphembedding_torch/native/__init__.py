@@ -14,7 +14,7 @@ import hashlib
 import os
 import subprocess
 import threading
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -68,7 +68,7 @@ def _load() -> Optional[ctypes.CDLL]:
         i64p = ctypes.POINTER(ctypes.c_int64)
         lib.kge_sample_negatives.argtypes = [
             i64p, ctypes.c_int64, i64p, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_int64, ctypes.c_uint64, ctypes.POINTER(ctypes.c_int32)]
+            ctypes.c_int64, ctypes.c_uint64, ctypes.POINTER(ctypes.c_int32), i64p]
         lib.kge_sample_negatives.restype = None
         lib.kge_openmp_threads.argtypes = []
         lib.kge_openmp_threads.restype = ctypes.c_int
@@ -99,17 +99,20 @@ def _i64(a: np.ndarray):
 
 
 def sample_negatives(true_enc: np.ndarray, row_keys: np.ndarray, nentity: int,
-                     n_neg: int, seed: int) -> np.ndarray:
-    """i32[B, n_neg] negatives: per row b, the first n_neg uniform draws
-    whose encoding ``row_keys[b] * nentity + id`` is not in the sorted
-    ``true_enc`` (see sampler.cpp)."""
+                     n_neg: int, seed: int) -> Tuple[np.ndarray, int]:
+    """(i32[B, n_neg] negatives, draws): per row b, the first n_neg uniform
+    draws whose encoding ``row_keys[b] * nentity + id`` is not in the sorted
+    ``true_enc`` (see sampler.cpp), and the candidates drawn over the batch;
+    draws less B * n_neg were rejected as train-true."""
     lib = _load()
     if lib is None:
         raise RuntimeError("native sampler library unavailable")
     true_enc = np.ascontiguousarray(true_enc, np.int64)
     row_keys = np.ascontiguousarray(row_keys, np.int64)
     out = np.empty((len(row_keys), n_neg), np.int32)
+    draws = ctypes.c_int64(0)
     lib.kge_sample_negatives(
         _i64(true_enc), len(true_enc), _i64(row_keys), len(row_keys), nentity,
-        n_neg, seed & (2**64 - 1), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)))
-    return out
+        n_neg, seed & (2**64 - 1), out.ctypes.data_as(ctypes.POINTER(ctypes.c_int32)),
+        ctypes.byref(draws))
+    return out, draws.value

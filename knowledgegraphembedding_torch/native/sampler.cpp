@@ -83,12 +83,14 @@ extern "C" {
 
 // Sample out[b, j] ~ Uniform({0..nentity-1} \ true_set(key_b)) iid.
 // true_enc: sorted array of key*nentity + true_entity encodings.
+// *draws: the candidates drawn over the batch, kept and rejected.
 void kge_sample_negatives(const int64_t *true_enc, int64_t n_true,
                           const int64_t *row_keys, int64_t batch,
                           int64_t nentity, int64_t n_neg, uint64_t seed,
-                          int32_t *out) {
+                          int32_t *out, int64_t *draws) {
+  int64_t total = 0;
 #if defined(_OPENMP)
-#pragma omp parallel for schedule(static)
+#pragma omp parallel for reduction(+ : total) schedule(static)
 #endif
   for (int64_t b = 0; b < batch; ++b) {
     Xoshiro256 rng(seed * 0x9e3779b97f4a7c15ULL + (uint64_t)b);
@@ -97,11 +99,13 @@ void kge_sample_negatives(const int64_t *true_enc, int64_t n_true,
     int64_t got = 0;
     while (got < n_neg) {
       int64_t cand = (int64_t)rng.bounded((uint64_t)nentity);
+      ++total;
       if (!contains(true_enc, n_true, base + cand)) {
         row[got++] = (int32_t)cand;
       }
     }
   }
+  *draws = total;
 }
 
 // Count how many of the candidate encodings hit the true set (test hook).

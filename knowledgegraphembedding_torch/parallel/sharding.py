@@ -43,6 +43,7 @@ from ..config import ModelSpec, TrainSpec
 from ..models import kge
 from ..ops import loss as loss_ops
 from ..train import Trainer, batch_scores, use_dense_scoring
+from ..utils import profiling
 from . import multihost
 
 if TYPE_CHECKING:  # imported where used: DTensor's modules take a second to import
@@ -340,13 +341,15 @@ class ShardedTrainer(Trainer):
 
     def one_step(self, batch) -> Dict[str, torch.Tensor]:
         pos, neg, weight, mode = batch
-        pos, neg, weight = self.local_batch(pos, neg, weight)
-        weight = weight.to(self.params[ENTITY].dtype)
-        step_idx = self.step
-        logs = self._step_fn(self.params, self.opt_state, pos, neg, weight, self.lr_tensor,
-                             spec=self.spec, tspec=self.tspec, mesh=self.mesh, mode=mode)
-        self.step = step_idx + 1
-        self.decay_if_due(step_idx)
+        with profiling.span("train_step"):
+            pos, neg, weight = self.local_batch(pos, neg, weight)
+            weight = weight.to(self.params[ENTITY].dtype)
+            step_idx = self.step
+            logs = self._step_fn(self.params, self.opt_state, pos, neg, weight,
+                                 self.lr_tensor, spec=self.spec, tspec=self.tspec,
+                                 mesh=self.mesh, mode=mode)
+            self.step = step_idx + 1
+            self.decay_if_due(step_idx)
         return logs
 
     # --- checkpoint surface -------------------------------------------------

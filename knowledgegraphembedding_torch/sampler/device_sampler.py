@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from ..data.filterset import TrueIndex, dense_key_arrays, subsampling_weights
+from ..utils import profiling
 from .negative import HEAD_BATCH, TAIL_BATCH
 
 _M32 = 0xFFFFFFFF
@@ -324,9 +325,17 @@ class DeviceSampler:
                             nrelation=self.nrelation)
 
     def next_batch(self):
-        self.draws.add_(1)
-        idx = upload(self._next_indices(), self.device)  # the only per-step upload
-        pos, neg, weight = self.sample(idx, self.draws)
+        """The host half of a draw: the epoch indices, their upload (the
+        only per-step upload) and the enqueue of the draw on the device."""
+        with profiling.span("sampler.indices"):
+            idx = self._next_indices()
+        with profiling.span("sampler.upload"):
+            idx = upload(idx, self.device)
+        with profiling.span("sampler.draw"):
+            self.draws.add_(1)
+            pos, neg, weight = self.sample(idx, self.draws)
+        if profiling.enabled():
+            profiling.count("sampler.kept", neg.numel())
         return pos, neg, weight, self.mode
 
 
@@ -351,8 +360,10 @@ class DeviceBidirectionalIterator:
         return self
 
     def __next__(self):
-        self._enqueue()
-        return self._queue.pop(0)
+        with profiling.span("sampler.next"):
+            profiling.count("sampler.batches")
+            self._enqueue()
+            return self._queue.pop(0)
 
     def close(self):
         self._queue.clear()

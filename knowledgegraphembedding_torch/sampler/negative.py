@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from ..data.filterset import subsampling_weights
+from ..utils import profiling
 
 HEAD_BATCH = "head-batch"
 TAIL_BATCH = "tail-batch"
@@ -114,13 +115,15 @@ class TrainSampler:
         return idx
 
     def next_batch(self) -> Batch:
-        idx = self._next_indices()
-        pos = self.triples[idx]
-        if self.negative_sharing == "batch":
-            neg = self._shared_neg_rng.integers(0, self.nentity,
-                                                size=(1, self.n)).astype(np.int32)
-        else:
-            neg = self._sample_negatives_batch(pos)
+        with profiling.span("sampler.sample"):
+            idx = self._next_indices()
+            pos = self.triples[idx]
+            if self.negative_sharing == "batch":
+                neg = self._shared_neg_rng.integers(0, self.nentity,
+                                                    size=(1, self.n)).astype(np.int32)
+            else:
+                neg = self._sample_negatives_batch(pos)
+            profiling.count("sampler.kept", neg.size)
         return pos, neg, self.weights[idx], self.mode
 
     def _row_keys(self, pos: np.ndarray) -> np.ndarray:
@@ -141,17 +144,22 @@ class TrainSampler:
     def _sample_negatives_batch(self, pos: np.ndarray) -> np.ndarray:
         """Draw 2n per row, drop collisions, keep the first n survivors in
         draw order; redraw only for rows still short. Per slot: iid uniform
-        over the non-true entities, as the reference's loop."""
+        over the non-true entities, as the reference's loop. Counts the
+        train-true draws as ``sampler.rejected``."""
         B, n = pos.shape[0], self.n
         keys = self._row_keys(pos)
         if self._native:
             from .. import native as native_mod
 
-            return native_mod.sample_negatives(
+            neg, draws = native_mod.sample_negatives(
                 self._true_enc, keys, self.nentity, n,
                 seed=int(self.rng.integers(0, 2**63)))
+            profiling.count("sampler.rejected", draws - neg.size)
+            return neg
         cand = self.rng.integers(0, self.nentity, size=(B, 2 * n))
         ok = ~self._member(keys, cand)
+        counting = profiling.enabled()
+        rejected = int(ok.size - np.count_nonzero(ok)) if counting else 0
         order = np.argsort(~ok, axis=1, kind="stable")  # survivors first
         neg = np.take_along_axis(cand, order[:, :n], axis=1).astype(np.int32)
         for i in np.nonzero(ok.sum(axis=1) < n)[0]:
@@ -159,8 +167,12 @@ class TrainSampler:
             while row.size < n:
                 extra = self.rng.integers(0, self.nentity, size=2 * n)
                 m = self._member(keys[i:i + 1], extra[None, :])[0]
+                if counting:
+                    rejected += int(np.count_nonzero(m))
                 row = np.concatenate([row, extra[~m]])
             neg[i] = row[:n]
+        if counting:
+            profiling.count("sampler.rejected", rejected)
         return neg
 
 
@@ -178,10 +190,11 @@ class BidirectionalIterator:
         return self
 
     def __next__(self) -> Batch:
-        self.step += 1
-        if self.step % 2 == 0:
-            return self.head_sampler.next_batch()
-        return self.tail_sampler.next_batch()
+        with profiling.span("sampler.next"):
+            self.step += 1
+            if self.step % 2 == 0:
+                return self.head_sampler.next_batch()
+            return self.tail_sampler.next_batch()
 
     def close(self) -> None:
         """Nothing to release; the same lifecycle as ``PrefetchIterator``."""
@@ -192,7 +205,7 @@ def _upload(batch: Batch, device: torch.device, stream: "torch.cuda.Stream"):
     returns the device tensors and an event recorded after the copies. The
     caching host allocator keeps each pinned block until its copy is done."""
     pos, neg, w, mode = batch
-    with torch.cuda.stream(stream):
+    with profiling.span("sampler.upload"), torch.cuda.stream(stream):
         out = tuple(torch.from_numpy(np.ascontiguousarray(x)).pin_memory()
                     .to(device, non_blocking=True) for x in (pos, neg, w))
         ev = torch.cuda.Event()
@@ -240,21 +253,26 @@ class PrefetchIterator:
         return self
 
     def __next__(self):
-        while True:  # batches queued before a worker failure come first
-            try:
-                item = self.q.get(timeout=0.1)
-                break
-            except queue.Empty:
-                if self._exc is not None:
-                    raise self._exc
-        if self.device is None:
-            return item
-        tensors, mode, ev = item
-        current = torch.cuda.current_stream(self.device)
-        current.wait_event(ev)
-        for t in tensors:
-            t.record_stream(current)
-        return (*tensors, mode)
+        with profiling.span("sampler.next"):
+            if profiling.enabled():
+                profiling.count("sampler.batches")
+                profiling.count("sampler.starved", int(self.q.empty()))
+            with profiling.span("sampler.queue_get"):
+                while True:  # batches queued before a worker failure come first
+                    try:
+                        item = self.q.get(timeout=0.1)
+                        break
+                    except queue.Empty:
+                        if self._exc is not None:
+                            raise self._exc
+            if self.device is None:
+                return item
+            tensors, mode, ev = item
+            current = torch.cuda.current_stream(self.device)
+            current.wait_event(ev)
+            for t in tensors:
+                t.record_stream(current)
+            return (*tensors, mode)
 
     def close(self):
         self._stop.set()

@@ -33,6 +33,7 @@ from .config import ModelSpec, TrainSpec
 from .models import kge, scorers
 from .ops import loss as loss_ops
 from .ops import matmul_scoring
+from .utils import profiling
 
 
 def use_dense_scoring(spec: ModelSpec, tspec: TrainSpec) -> bool:
@@ -100,9 +101,12 @@ def train_step(params: kge.Params, opt_state: optim.AdamState, pos, neg, weight,
     it was made on, and one kept from an earlier step on another stream
     would make a graph capture (``fused_train.py``) wait on that stream."""
     leaves = {k: p.detach().requires_grad_(True) for k, p in params.items()}
-    loss, logs = loss_and_logs(leaves, spec, tspec, pos, neg, weight, mode)
-    grads = torch.autograd.grad(loss, list(leaves.values()))
-    optim.apply_update(params, dict(zip(leaves, grads)), opt_state, lr)
+    with profiling.span("train_step.forward"):
+        loss, logs = loss_and_logs(leaves, spec, tspec, pos, neg, weight, mode)
+    with profiling.span("train_step.backward"):
+        grads = torch.autograd.grad(loss, list(leaves.values()))
+    with profiling.span("train_step.adam"):
+        optim.apply_update(params, dict(zip(leaves, grads)), opt_state, lr)
     return {k: v.detach() for k, v in logs.items()}
 
 
@@ -164,18 +168,21 @@ class Trainer:
 
     def one_step(self, batch) -> Dict[str, torch.Tensor]:
         pos, neg, weight, mode = batch
-        step_idx = self.step
-        logs = train_step(self.params, self.opt_state, pos, neg, weight, self.lr_tensor,
-                          spec=self.spec, tspec=self.tspec, mode=mode)
-        self.step = step_idx + 1
-        self.decay_if_due(step_idx)
+        with profiling.span("train_step"):
+            step_idx = self.step
+            logs = train_step(self.params, self.opt_state, pos, neg, weight, self.lr_tensor,
+                              spec=self.spec, tspec=self.tspec, mode=mode)
+            self.step = step_idx + 1
+            self.decay_if_due(step_idx)
         return logs
 
     def decay_if_due(self, step_idx: int) -> None:
         """codes/run.py ≈L300: checked after step ``step_idx``, so the step
         at warm_up_steps still trains at the old rate; the next one sees
         lr/10, a fresh Adam (zeroed in place) and warm_up_steps*3."""
-        if step_idx >= self.warm_up_steps:
+        if step_idx < self.warm_up_steps:
+            return
+        with profiling.span("train_step.decay"):
             self.current_learning_rate = self.current_learning_rate / 10.0
             logging.info("Change learning_rate to %f at step %d",
                          self.current_learning_rate, step_idx)

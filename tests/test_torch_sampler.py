@@ -143,7 +143,7 @@ def test_native_negatives_avoid_the_true_set():
     nentity = 50
     keys = np.arange(8, dtype=np.int64)
     true_enc = np.unique(keys[:, None] * nentity + rng.integers(0, nentity, (8, 30)))
-    neg = t_native.sample_negatives(true_enc, keys, nentity, 40, seed=1)
+    neg, draws = t_native.sample_negatives(true_enc, keys, nentity, 40, seed=1)
     assert neg.shape == (8, 40) and neg.dtype == np.int32
     assert neg.min() >= 0 and neg.max() < nentity
     assert not np.isin(keys[:, None] * nentity + neg, true_enc).any()
