@@ -77,9 +77,11 @@ class FusedDeviceTrainer(Trainer):
     ``block_capacity`` sizes the static index buffer (a larger block grows
     it and recaptures). ``record_batches`` keeps each block's drawn batches
     on the device (``recorded``) for comparisons. ``graph_replays`` counts
-    graph replays across all instances."""
+    graph replays across all instances, ``graph_captures`` the captures (two
+    graphs each, one a mode)."""
 
     graph_replays = 0
+    graph_captures = 0
 
     def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
                  warm_up_steps: int, train: np.ndarray, seed: int = 0, init_step: int = 0,
@@ -202,6 +204,7 @@ class FusedDeviceTrainer(Trainer):
             graphs[mode] = g
         self._graphs = graphs
         self._captured_on = self._graph_inputs()
+        FusedDeviceTrainer.graph_captures += 1
 
     def _graphs_current(self) -> bool:
         """Whether graphs were captured on the tensors the trainer holds now."""

@@ -17,7 +17,11 @@ the whole entity table where the JAX package does (``use_dense_scoring``,
 ``ops/matmul_scoring.py``); the other models gather rows. ``--precision
 bf16`` computes the scores from bf16 casts of the f32 tables (f32 sums, f32
 scores, gradients into the f32 masters); ``--negative_sharing batch`` scores
-one shared ``[1, n]`` negative row against the whole batch.
+one shared ``[1, n]`` negative row against the whole batch. RotatE's
+per-row negatives on a plain f32 CUDA table are scored by the hand-written
+kernels of ``ops/rotate_score.py`` (forward and backward, reading each
+gathered row from the table); every other case runs the chain of
+``models/scorers.py``.
 """
 
 from __future__ import annotations
@@ -32,7 +36,7 @@ from . import optim
 from .config import ModelSpec, TrainSpec
 from .models import kge, scorers
 from .ops import loss as loss_ops
-from .ops import matmul_scoring
+from .ops import matmul_scoring, rotate_score
 from .utils import profiling
 
 
@@ -62,16 +66,23 @@ def batch_scores(params: kge.Params, spec: ModelSpec, tspec: TrainSpec, pos: tor
         # in the params' dtype unless bf16 is asked for, as the JAX package
         negative_score = matmul_scoring.dense_negative_scores(spec, params, pos, neg, mode,
                                                               compute_dtype)
+    elif rotate_score.takes(spec, params, pos, neg, compute_dtype):
+        # RotatE's per-row negatives: the hand-written score kernels
+        profiling.count("train_step.gather_scored")
+        profiling.count("train_step.score_kernel")
+        negative_score = rotate_score.rotate_negative_scores(params, spec, pos, neg, mode)
     elif neg.shape[0] == 1 and pos.shape[0] > 1:
         # shared negatives: the backward recomputes the negative forward
         # rather than keep its [B, n, d] intermediates, as the JAX package's
         # jax.checkpoint does (the recompute gathers only n rows). No RNG is
         # drawn in the forward, and reading the generator's state is not
         # allowed inside a CUDA graph capture, so none is saved.
+        profiling.count("train_step.gather_scored")
         negative_score = checkpoint(
             lambda p: kge.forward(p, spec, (pos, neg), mode, compute_dtype), params,
             use_reentrant=False, preserve_rng_state=False)
     else:
+        profiling.count("train_step.gather_scored")
         negative_score = kge.forward(params, spec, (pos, neg), mode, compute_dtype)
     return kge.forward(params, spec, pos, scorers.SINGLE, compute_dtype), negative_score
 

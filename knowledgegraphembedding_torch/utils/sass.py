@@ -13,10 +13,14 @@ thread issues
     the published widths take): the chunk loop, the innermost loop with the
     most shared-memory loads, over its passes (one ``__syncthreads`` each)
     times the (row, candidate, element) terms a thread scores in one pass,
-    which the tile shape gives (``rank_kernel.PAIR_ELEMENTS_PER_STEP``).
+    which the tile shape gives (``rank_kernel.PAIR_ELEMENTS_PER_STEP``);
+  - per complex element of each RotatE score kernel
+    (``csrc/rotate_score.cu``, the instantiations with 16-byte loads): every
+    instruction of the innermost loop with the most square roots, once,
+    over its square roots (``MUFU.RSQ``, one an element).
 
-Both walk the fast path: a forward conditional branch over a region that
-holds a call, a local-memory access, a global load or a loop (sqrtf's
+The first two walk the fast path: a forward conditional branch over a
+region that holds a call, a local-memory access, a global load or a loop (sqrtf's
 special cases, sinf's large-argument reduction) is taken as the data of
 the probe and of the rank kernels never enter it; the branch itself
 issues and is counted. So is a region that holds a global atomic: the
@@ -82,7 +86,8 @@ def unit(op: str) -> str:
 
 
 def _target(ins: Instr) -> int:
-    return int(ins.args.split()[0], 16)
+    """A branch's target: its last operand (``BRA 0x1cf0``, ``BRA !P3, 0x1cf0``)."""
+    return int(ins.args.split(",")[-1], 16)
 
 
 def _loops(instrs: List[Instr]) -> List[Tuple[int, int]]:
@@ -166,4 +171,35 @@ def rank_element_counts(text: str, pair_elements_per_pass: int
             raise ValueError(f"{name}: the chunk loop holds no BAR.SYNC")
         per = passes * pair_elements_per_pass
         out[int(m.group(1))] = collections.Counter({op: n / per for op, n in counts.items()})
+    return out
+
+
+def score_element_counts(text: str) -> Dict[str, collections.Counter]:
+    """{kernel: opcodes issued per complex element} of the RotatE score
+    kernels' 16-byte instantiations (``score_forward``,
+    ``score_grad_query``, ``score_grad_table``): the innermost loop with the
+    most ``MUFU.RSQ`` (one a root, one a (row, element)), every instruction
+    from its first to its back edge counted once, over those roots. The
+    slow paths of the root and of the division are subroutines outside the
+    loop, so the FP32 and MUFU counts are the fast path's; their call sites
+    (a move, the call, a branch) add to ``other`` only. The loop's branch
+    over a row index outside the table is walked: the data never takes it."""
+    out = {}
+    for name, instrs in parse(text).items():
+        m = re.search(r"(score_forward|score_grad_query|score_grad_table)I6float4E", name)
+        if not m:
+            continue
+        loops = _loops(instrs)
+        inner = [(f, l) for f, l in loops
+                 if not any(f <= f2 and l2 < l for f2, l2 in loops if (f2, l2) != (f, l))]
+
+        def roots(fl):
+            return sum(x.op.startswith("MUFU.RSQ") for x in instrs[fl[0]:fl[1] + 1])
+
+        if not inner or roots(max(inner, key=roots)) == 0:
+            raise ValueError(f"{name}: no loop holds a MUFU.RSQ")
+        first, last = max(inner, key=roots)
+        per = roots((first, last))
+        counts = collections.Counter(x.op for x in instrs[first:last + 1])
+        out[m.group(1)] = collections.Counter({op: n / per for op, n in counts.items()})
     return out

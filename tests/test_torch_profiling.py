@@ -102,8 +102,10 @@ def test_profile_dir_writes_program_spans_and_counters_on_the_trace_clock(tmp_pa
     # ahead, before the session began too
     assert 24 - 5 <= worker["sampler.sample"] <= 24 + 5
     counters = {e["name"] for e in events if e.get("cat") == "program_counter"}
+    # RotatE on the CPU scores its negatives by gather, on the chain: no
+    # train_step.score_kernel, which counts the card's kernel path
     assert counters == {"sampler.batches", "sampler.starved", "sampler.kept",
-                        "sampler.rejected"}
+                        "sampler.rejected", "train_step.gather_scored"}
     window = [e for e in events if e.get("cat") == "Trace"][0]
     lo, hi = window["ts"], window["ts"] + window["dur"]
     steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
