@@ -54,7 +54,7 @@ from .parallel.shard_map_step import shardmap_train_step
 from .parallel.sharding import ShardedTrainer, is_model_sharded
 from .sampler.device_sampler import DeviceSampler, draw_index
 from .sampler.negative import HEAD_BATCH, TAIL_BATCH
-from .train import Trainer, train_step
+from .train import Trainer, train_step, writes_undone
 
 # fixed log-key order of the summed log vector a block returns
 _LOG_KEYS = ("loss", "negative_sample_loss", "positive_sample_loss")
@@ -179,22 +179,16 @@ class FusedDeviceTrainer(Trainer):
         """One CUDA graph per mode, in one memory pool, after one eager
         warm-up step per mode whose writes are undone; warm-up and capture
         run on one side stream, kept for the trainer's life."""
-        state = self._state()
         cur = torch.cuda.current_stream(self.device)
         if self._side is None:
             self._side = torch.cuda.Stream(self.device)
         side = self._side
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            saved = [t.detach().clone() for t in state]
+        with torch.cuda.stream(side), writes_undone(self._state()):
             for mode in (TAIL_BATCH, HEAD_BATCH):
                 self._slot.zero_()
                 self._step(mode)
-            with torch.no_grad():
-                for t, s in zip(state, saved):
-                    t.copy_(s)
         cur.wait_stream(side)
-        del saved
         pool = torch.cuda.graph_pool_handle()
         graphs = {}
         for mode in (TAIL_BATCH, HEAD_BATCH):

@@ -10,7 +10,8 @@ benchmark's traced window, or the CLI's ``--profile_dir`` through
   records ``(name, parent, thread id, start_ns, end_ns)`` into a bounded
   in-memory store, the parent being the enclosing span on the same thread.
   Threads the profiler does not follow (the prefetch worker) record alike.
-- ``count(name, n)``: a timestamped counter sample, recorded only when on.
+- ``count(name, n)``: a timestamped counter sample, recorded only when on;
+  ``diverted_counts`` collects a block's samples instead, on or off.
 
 Spans never enter the device timeline. Kineto projects a ``record_function``
 range that launches kernels onto the device rows as a user annotation, which
@@ -135,10 +136,29 @@ def span(name: str):
 
 def count(name: str, n: int = 1) -> None:
     """One sample of counter ``name``: ``n`` more, at this time and thread,
-    recorded while a profiler session records."""
+    recorded while a profiler session records (inside ``diverted_counts``,
+    kept by it instead)."""
+    sink = getattr(_local, "sink", None)
+    if sink is not None:
+        sink.append((name, n))
+        return
     if not _autograd_profiler._is_profiler_enabled:
         return
     _counts.append(CountRecord(name, threading.get_ident(), time.time_ns(), n))
+
+
+@contextlib.contextmanager
+def diverted_counts():
+    """Every ``count`` of this thread inside the block, profiled or not, goes
+    to the list this yields, as ``(name, n)``, and not to the store: a CUDA
+    graph's capture runs no step, so it keeps what the captured step counts
+    for each replay to count again."""
+    outer = getattr(_local, "sink", None)
+    _local.sink = sink = []
+    try:
+        yield sink
+    finally:
+        _local.sink = outer
 
 
 def records() -> Tuple[List[SpanRecord], List[CountRecord], List[MarkRecord]]:

@@ -16,6 +16,7 @@ the program adds to a trace; the native sampler's draw count gives the
 rejections a Python replay of its generator counts."""
 
 import collections
+import contextlib
 import json
 import os
 import threading
@@ -103,9 +104,11 @@ def test_profile_dir_writes_program_spans_and_counters_on_the_trace_clock(tmp_pa
     assert 24 - 5 <= worker["sampler.sample"] <= 24 + 5
     counters = {e["name"] for e in events if e.get("cat") == "program_counter"}
     # RotatE on the CPU scores its negatives by gather, on the chain: no
-    # train_step.score_kernel, which counts the card's kernel path
+    # train_step.score_kernel, which counts the card's kernel path; and its
+    # steps run eagerly: no train_step.replayed or .captured, which count
+    # the card's graphs
     assert counters == {"sampler.batches", "sampler.starved", "sampler.kept",
-                        "sampler.rejected", "train_step.gather_scored"}
+                        "sampler.rejected", "train_step.gather_scored", "train_step.eager"}
     window = [e for e in events if e.get("cat") == "Trace"][0]
     lo, hi = window["ts"], window["ts"] + window["dur"]
     steps = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
@@ -254,6 +257,56 @@ def test_the_only_ranges_the_program_adds_are_zero_length_marks(recorder):
     assert len(marks) == sum(s.parent is None for s in spans) == 3 + 3 + 1
     for e in marks:
         assert not e.cpu_children and e.time_range.end - e.time_range.start < 1000
+
+
+@pytest.mark.parametrize("profiled", [False, True], ids=["off", "on"])
+def test_diverted_counts_collect_a_blocks_counts_off_the_store(recorder, profiled):
+    """Inside ``diverted_counts`` this thread's counts go to its list, as
+    ``(name, n)``, profiled or not, and never to the store; a nested block
+    keeps its own; outside, counting is as before."""
+    with contextlib.ExitStack() as stack:
+        if profiled:
+            stack.enter_context(cpu_profile())
+        with profiling.diverted_counts() as outer:
+            profiling.count("a")
+            with profiling.diverted_counts() as inner:
+                profiling.count("b", 3)
+            other = threading.Thread(target=profiling.count, args=("c",))
+            other.start()
+            other.join()
+            profiling.count("d", 2)
+        profiling.count("e")
+    assert outer == [("a", 1), ("d", 2)] and inner == [("b", 3)]
+    stored = [(c.name, c.n) for c in recorder.records()[1]]
+    assert stored == ([("c", 1), ("e", 1)] if profiled else [])
+
+
+@pytest.mark.parametrize("model", ["RotatE", "TransE", "DistMult"])
+def test_cpu_steps_run_eagerly_and_capture_nothing(recorder, model):
+    """On the CPU every ``Trainer.one_step`` runs ``train_step`` eagerly and
+    counts ``train_step.eager``; no graph is made or counted."""
+    from knowledgegraphembedding_torch.train import StepGraphs
+
+    ds, _, tspec, _, _ = _tiny_program()
+    spec = ModelSpec(model_name=model, nentity=ds.nentity, nrelation=ds.nrelation,
+                     hidden_dim=4, gamma=4.0, double_entity_embedding=model == "RotatE")
+    params = kge.init_params(spec, torch.Generator().manual_seed(0), device="cpu")
+    trainer = Trainer(spec, tspec, params, lr=0.01, warm_up_steps=1)
+    it = t_neg.build_train_iterator(ds.train, ds.nentity, ds.nrelation, 8, 4, seed=0,
+                                    prefetch_depth=0, backend="numpy")
+    captures, replays = StepGraphs.captures, StepGraphs.replays
+    with cpu_profile():
+        for _ in range(4):
+            pos, neg, w, mode = next(it)
+            trainer.one_step((torch.from_numpy(pos), torch.from_numpy(neg),
+                              torch.from_numpy(w), mode))
+    counts = collections.Counter()
+    for c in recorder.records()[1]:
+        counts[c.name] += c.n
+    assert counts["train_step.eager"] == 4
+    assert not counts["train_step.replayed"] and not counts["train_step.captured"]
+    assert trainer._step_graphs is None
+    assert (StepGraphs.captures, StepGraphs.replays) == (captures, replays)
 
 
 def _splitmix64(x):
