@@ -51,7 +51,6 @@ import torch
 from . import optim
 from .config import RunConfig
 from .models import kge
-from .train import trainable
 
 # args whose saved values override the CLI on resume (codes/run.py
 # §override_config ≈L83-100), plus gamma, which the reference restores with
@@ -590,7 +589,7 @@ def restore_trainer(trainer, path: str):
     reference's ``-init``: model, optimizer state, step, lr and warm-up)."""
     device = trainer.params["entity_embedding"].device
     ck = load_checkpoint(path, device)
-    trainer.params = trainable(ck.params)
+    trainer.params = kge.trainable(ck.params)
     trainer.opt_state = optim.state_from_numpy(ck.adam_count, ck.adam_m, ck.adam_v, device)
     trainer.step = ck.step
     trainer.current_learning_rate = ck.current_learning_rate

@@ -560,33 +560,102 @@ def _auto_sampler_backend(config: RunConfig, ds, spec, tspec) -> str:
 def _train(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod, log_metrics) -> None:
     """The train loop of codes/run.py §main ≈L280-340: events fire on
     ``(step + 1) % N`` (save, then log, then validation), and a final save
-    follows, synchronous, after any periodic one still being written.
-    Per-step logs are summed on the device; each log window reads them to
-    the host once. ``--steps_per_dispatch > 1`` runs fused blocks
-    (``_run_fused_training``); otherwise one step at a time
-    (``_run_step_training``)."""
-    if config.steps_per_dispatch > 1:
-        logging.info("sampler backend: device%s",
-                     " (auto)" if config.sampler_backend == "auto" else "")
-        _run_fused_training(trainer, config, ds, device, evaluate, ckpt_mod, log_metrics)
-    else:
-        _run_step_training(trainer, config, ds, device, evaluate, ckpt_mod, log_metrics)
-    _periodic_save(ckpt_mod, trainer, config, final=True)
-
-
-def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod,
-                       log_metrics) -> None:
-    """One step at a time, on batches of the host sampler or the device
-    sampler; ``--profile_dir`` traces the loop, Valid evaluations included.
-    A mesh trainer takes each host batch as numpy and keeps its rank's rows;
-    a fleet host samples its edge partition of the train split at the host
-    batch size (knowledgegraphembedding_tpu/cli.py:538-598). Under
+    follows, synchronous, after any periodic one still being written. Each
+    advance is one step on a batch of the feed (``_train_feed``) or, under
+    ``--steps_per_dispatch k``, one fused block
+    (knowledgegraphembedding_tpu/cli.py §_run_fused_training) of up to k
+    steps; it is clipped to every log, checkpoint and validation boundary,
+    to ``max_steps`` and to the warm-up decay, so event timing and the LR
+    schedule are those of the per-step loop. Logs are summed on the device;
+    each log window reads them to the host once. ``--profile_dir`` traces
+    the loop, graph captures and Valid evaluations included. Under
     ``--spmd_mode routed`` the overflow flag is read every ``min(log_steps,
     25)`` steps and before every save, and an overflow raises before any
     checkpoint of the corrupted state is written (cli.py:609-672)."""
+    mesh = getattr(trainer, "mesh", None)
+    it = _train_feed(trainer, config, ds, device)
+
+    def to_device(x):
+        if mesh is not None or isinstance(x, torch.Tensor):
+            return x
+        return torch.from_numpy(x).to(device)
+
+    def advance(k: int):
+        if it is None:
+            with profiling.span("train_block"):
+                return trainer.run_block(k)  # sums over the k steps, on the device
+        pos, neg, w, mode = next(it)
+        return trainer.one_step((to_device(pos), to_device(neg), to_device(w), mode))
+
+    def to_boundary(step, period):
+        return period - step % period
+
+    overflow_every = (min(config.log_steps, 25)
+                      if config.spmd_mode == "routed" and mesh is not None else 0)
+    log_keys: list = []
+    log_acc = None
+    t_last = time.time()
+    n_since = 0
+    try:
+        with profiling.trace(config.profile_dir, device):
+            while trainer.step < config.max_steps:
+                step0 = trainer.step
+                k = min(config.steps_per_dispatch, config.max_steps - step0,
+                        to_boundary(step0, config.log_steps),
+                        to_boundary(step0, config.save_checkpoint_steps))
+                if config.do_valid:
+                    k = min(k, to_boundary(step0, config.valid_steps))
+                k = trainer.max_block(k)
+                logs = advance(k)
+                if log_acc is None:
+                    log_keys = sorted(logs)
+                    log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
+                log_acc = log_acc + torch.stack([logs[kk] for kk in log_keys])
+                n_since += k
+
+                step = trainer.step - 1  # the last completed step
+                if overflow_every and (step + 1) % overflow_every == 0:
+                    _raise_on_overflow(log_acc, log_keys, _OVERFLOW)
+                if (step + 1) % config.save_checkpoint_steps == 0:
+                    _raise_on_overflow(log_acc, log_keys, _OVERFLOW_SAVE)
+                    _periodic_save(ckpt_mod, trainer, config)
+                if (step + 1) % config.log_steps == 0:
+                    # a failed background write aborts within one log window
+                    ckpt_mod.check_pending_save()
+                    sums = log_acc.cpu().numpy()  # the one device sync per window
+                    metrics = {kk: float(v) / n_since for kk, v in zip(log_keys, sums)}
+                    metrics["triples_per_sec"] = (n_since * config.batch_size
+                                                  / (time.time() - t_last))
+                    log_metrics("Training average", step, metrics)
+                    if metrics.get("routed_overflow", 0.0) > 0.0:
+                        raise RuntimeError(_OVERFLOW)
+                    log_acc = torch.zeros_like(log_acc)
+                    t_last = time.time()
+                    n_since = 0
+                if config.do_valid and (step + 1) % config.valid_steps == 0:
+                    logging.info("Evaluating on Valid Dataset...")
+                    log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
+            if overflow_every:  # steps since the last poll, before the final save
+                _raise_on_overflow(log_acc, log_keys, _OVERFLOW_SAVE)
+    finally:
+        if it is not None:
+            it.close()
+    _periodic_save(ckpt_mod, trainer, config, final=True)
+
+
+def _train_feed(trainer, config: RunConfig, ds, device):
+    """The sampler backend of the run and its batch iterator; None under
+    ``--steps_per_dispatch > 1``, whose trainer draws its own batches on the
+    device. A mesh trainer takes each host batch as numpy and keeps its
+    rank's rows; a fleet host samples its edge partition of the train split
+    at the host batch size (knowledgegraphembedding_tpu/cli.py:538-598)."""
     from . import native as native_mod
     from .sampler import build_train_iterator
 
+    if config.steps_per_dispatch > 1:
+        logging.info("sampler backend: device%s",
+                     " (auto)" if config.sampler_backend == "auto" else "")
+        return None
     mesh = getattr(trainer, "mesh", None)
     backend = config.sampler_backend
     if backend == "auto" and device.type == "cuda" and mesh is None:
@@ -610,70 +679,21 @@ def _run_step_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mo
     if mesh is not None and backend == "device":
         from .sampler.device_sampler import build_mesh_device_iterator
 
-        it = build_mesh_device_iterator(
+        return build_mesh_device_iterator(
             mesh, ds.train, ds.nentity, ds.nrelation, config.batch_size,
             config.negative_sample_size, seed=config.seed,
             negative_sharing=config.negative_sharing,
             depth=max(1, config.prefetch_depth // 2), index_subset=index_subset)
-    else:
-        it = build_train_iterator(
-            ds.train, ds.nentity, ds.nrelation, stream_batch,
-            config.negative_sample_size, seed=stream_seed,
-            prefetch_depth=config.prefetch_depth, backend=backend,
-            # on CUDA the prefetch thread uploads batch i+1 under step i; the
-            # device sampler draws its batches there; a mesh trainer takes
-            # host arrays and uploads its own rows
-            device=device if device.type == "cuda" and mesh is None else None,
-            negative_sharing=config.negative_sharing, index_subset=index_subset,
-            shared_negative_seed=shared_seed)
-
-    def to_device(x):
-        if mesh is not None or isinstance(x, torch.Tensor):
-            return x
-        return torch.from_numpy(x).to(device)
-
-    overflow_every = (min(config.log_steps, 25)
-                      if config.spmd_mode == "routed" and mesh is not None else 0)
-    log_keys: list = []
-    log_acc = None
-    t_last = time.time()
-    n_since = 0
-    try:
-        with profiling.trace(config.profile_dir, device):
-            for step in range(trainer.step, config.max_steps):
-                pos, neg, w, mode = next(it)
-                logs = trainer.one_step((to_device(pos), to_device(neg), to_device(w), mode))
-                if log_acc is None:
-                    log_keys = sorted(logs)
-                    log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
-                log_acc = log_acc + torch.stack([logs[k] for k in log_keys])
-                n_since += 1
-
-                if overflow_every and (step + 1) % overflow_every == 0:
-                    _raise_on_overflow(log_acc, log_keys, _OVERFLOW)
-                if (step + 1) % config.save_checkpoint_steps == 0:
-                    _raise_on_overflow(log_acc, log_keys, _OVERFLOW_SAVE)
-                    _periodic_save(ckpt_mod, trainer, config)
-                if (step + 1) % config.log_steps == 0:
-                    # a failed background write aborts within one log window
-                    ckpt_mod.check_pending_save()
-                    sums = log_acc.cpu().numpy()  # the one device sync per window
-                    metrics = {k: float(v) / n_since for k, v in zip(log_keys, sums)}
-                    metrics["triples_per_sec"] = (n_since * config.batch_size
-                                                  / (time.time() - t_last))
-                    log_metrics("Training average", step, metrics)
-                    if metrics.get("routed_overflow", 0.0) > 0.0:
-                        raise RuntimeError(_OVERFLOW)
-                    log_acc = torch.zeros_like(log_acc)
-                    t_last = time.time()
-                    n_since = 0
-                if config.do_valid and (step + 1) % config.valid_steps == 0:
-                    logging.info("Evaluating on Valid Dataset...")
-                    log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
-            if overflow_every:  # steps since the last poll, before the final save
-                _raise_on_overflow(log_acc, log_keys, _OVERFLOW_SAVE)
-    finally:
-        it.close()
+    return build_train_iterator(
+        ds.train, ds.nentity, ds.nrelation, stream_batch,
+        config.negative_sample_size, seed=stream_seed,
+        prefetch_depth=config.prefetch_depth, backend=backend,
+        # on CUDA the prefetch thread uploads batch i+1 under step i; the
+        # device sampler draws its batches there; a mesh trainer takes
+        # host arrays and uploads its own rows
+        device=device if device.type == "cuda" and mesh is None else None,
+        negative_sharing=config.negative_sharing, index_subset=index_subset,
+        shared_negative_seed=shared_seed)
 
 
 # the JAX CLI's messages
@@ -690,57 +710,6 @@ def _raise_on_overflow(log_acc, log_keys, message: str) -> None:
     if log_acc is not None and "routed_overflow" in log_keys:
         if float(log_acc[log_keys.index("routed_overflow")]) > 0:
             raise RuntimeError(message)
-
-
-def _run_fused_training(trainer, config: RunConfig, ds, device, evaluate, ckpt_mod,
-                        log_metrics) -> None:
-    """The block loop of ``--steps_per_dispatch k``
-    (knowledgegraphembedding_tpu/cli.py §_run_fused_training): blocks
-    clipped to every log, checkpoint and validation boundary, to
-    ``max_steps`` and to the warm-up decay, so event timing and the LR
-    schedule are those of the per-step loop; one host read per log window.
-    ``--profile_dir`` traces the loop, the first block's graph capture and
-    the Valid evaluations between blocks included."""
-    def to_boundary(step, period):
-        return period - step % period
-
-    log_keys: list = []
-    log_acc = None
-    t_last = time.time()
-    n_since = 0
-    with profiling.trace(config.profile_dir, device):
-        while trainer.step < config.max_steps:
-            step0 = trainer.step
-            k = min(config.steps_per_dispatch, config.max_steps - step0,
-                    to_boundary(step0, config.log_steps),
-                    to_boundary(step0, config.save_checkpoint_steps))
-            if config.do_valid:
-                k = min(k, to_boundary(step0, config.valid_steps))
-            k = trainer.max_block(k)
-            with profiling.span("train_block"):
-                logs = trainer.run_block(k)  # sums over the k steps, on the device
-            if log_acc is None:
-                log_keys = sorted(logs)
-                log_acc = torch.zeros(len(log_keys), dtype=torch.float32, device=device)
-            log_acc = log_acc + torch.stack([logs[kk] for kk in log_keys])
-            n_since += k
-
-            step = trainer.step - 1  # the last completed step
-            if (step + 1) % config.save_checkpoint_steps == 0:
-                _periodic_save(ckpt_mod, trainer, config)
-            if (step + 1) % config.log_steps == 0:
-                ckpt_mod.check_pending_save()
-                sums = log_acc.cpu().numpy()  # the one device sync per window
-                metrics = {kk: float(v) / n_since for kk, v in zip(log_keys, sums)}
-                metrics["triples_per_sec"] = (n_since * config.batch_size
-                                              / (time.time() - t_last))
-                log_metrics("Training average", step, metrics)
-                log_acc = torch.zeros_like(log_acc)
-                t_last = time.time()
-                n_since = 0
-            if config.do_valid and (step + 1) % config.valid_steps == 0:
-                logging.info("Evaluating on Valid Dataset...")
-                log_metrics("Valid", step, evaluate(trainer.params, ds.valid))
 
 
 def _periodic_save(ckpt_mod, trainer, config: RunConfig, final: bool = False) -> None:

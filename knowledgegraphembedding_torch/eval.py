@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .config import ModelSpec
+from .cuda_graphs import Capturer
 from .data.filterset import MAX_DENSE_KEYS, FilterSets, dense_key_arrays
 from .models import kge, scorers
 from .ops import matmul_scoring, rank_kernel
@@ -293,67 +294,46 @@ def _eval_scan_plain(params: kge.Params, offsets, counts, values, pos_stack: tor
     return torch.stack([body(pos) for pos in pos_stack])
 
 
-# The eval graphs of a device share one memory pool (each graph's scratch is
-# freed inside its capture, where the next capture reuses it; the graphs
-# replay one at a time on the caller's stream) and one side stream for
-# warm-up and capture. The fused trainer's graphs have their own.
-_graph_pools: dict = {}
-_side_streams: dict = {}
+# The eval graphs of a device share one capturer: one memory pool (each
+# graph's scratch is freed inside its capture, where the next capture reuses
+# it; the graphs replay one at a time on the caller's stream) and one side
+# stream for warm-up and capture.
+_capturers: Dict[int, Capturer] = {}
 
 
 class _ChunkGraph:
-    """One scan chunk body captured as a CUDA graph: a static [SC, B, 3]
-    input, a static i32 [SC, B] output, the rank-kernel launches the capture
-    recorded, and ``reads``: whatever the graph reads that its owner does
-    not hold, kept so that no storage it reads is freed and reused while it
-    lives.
+    """One scan chunk body captured as a CUDA graph (``cuda_graphs``, kind
+    "eval_chunk"): a static [SC, B, 3] input, a static i32 [SC, B] output,
+    the rank-kernel launches the capture recorded, and ``reads``: whatever
+    the graph reads that its owner does not hold, kept so that no storage it
+    reads is freed and reused while it lives.
 
-    Before the capture, ``warm`` runs eagerly on the side stream over the
-    first chunk: every op of the body but the rank kernel, whose one-time
-    setup it does instead (``rank_kernel.prepare``), so that the allocator,
-    cuBLAS, NCCL and the kernel's library are set up and no kernel launch is
-    counted; the capture runs nothing. A call copies a chunk in and replays the graph on the current
-    stream, and adds the recorded launches to ``rank_counts.launches``. A
-    failed capture raises; nothing runs eagerly in the graph's place."""
-
-    captures = 0  # graphs captured, all instances
-    replays = 0   # replays, all instances
+    The capture's warm-up is ``warm``, run over the first chunk: every op of
+    the body but the rank kernel, whose one-time setup it does instead
+    (``rank_kernel.prepare``), so that the allocator, cuBLAS, NCCL and the
+    kernel's library are set up and no kernel launch is counted; the capture
+    runs nothing. A call copies a chunk in, replays the graph on the current
+    stream and adds the recorded launches to ``rank_counts.launches``."""
 
     def __init__(self, body: Callable, warm: Callable, first: torch.Tensor, reads=()):
-        with profiling.span("eval.capture"):
-            self._capture(body, warm, first, reads)
-
-    def _capture(self, body: Callable, warm: Callable, first: torch.Tensor, reads) -> None:
         device = first.device
         index = device.index if device.index is not None else torch.cuda.current_device()
-        if index not in _side_streams:
-            _side_streams[index] = torch.cuda.Stream(device)
-            _graph_pools[index] = torch.cuda.graph_pool_handle()
-        side = _side_streams[index]
-        self.reads = reads
-        self.pos = first.clone()
-        cur = torch.cuda.current_stream(device)
-        side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            warm(self.pos)
-        before = rank_kernel.rank_counts.captured
-        self.graph = torch.cuda.CUDAGraph()
-        # thread_local: an asynchronous checkpoint's writer thread may be
-        # copying on its own stream meanwhile
-        with torch.cuda.graph(self.graph, pool=_graph_pools[index], stream=side,
-                              capture_error_mode="thread_local"):
-            self.out = body(self.pos)
-        cur.wait_stream(side)
-        self.launches = rank_kernel.rank_counts.captured - before
-        _ChunkGraph.captures += 1
+        if index not in _capturers:
+            _capturers[index] = Capturer(device)
+        with profiling.span("eval.capture"):
+            self.reads = reads
+            self.pos = first.clone()
+            before = rank_kernel.rank_counts.captured
+            self.graph = _capturers[index].capture("eval_chunk", lambda: body(self.pos),
+                                                   warm=lambda: warm(self.pos))
+            self.launches = rank_kernel.rank_counts.captured - before
 
     def __call__(self, chunk: torch.Tensor) -> torch.Tensor:
         """The body's output for ``chunk``, valid until the next call."""
         self.pos.copy_(chunk)
-        self.graph.replay()
+        out = self.graph.replay()
         rank_kernel.rank_counts.launches += self.launches
-        _ChunkGraph.replays += 1
-        return self.out
+        return out
 
 
 def chunk_runner(graphs: dict, key, body: Callable, warm: Callable, on_cuda: bool,

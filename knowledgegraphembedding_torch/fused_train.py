@@ -15,24 +15,26 @@ place and the log sums added into a device buffer. A block then
     steps), each replay reading its row of the buffer through a device slot
     counter and advancing the device step counter itself;
   - reads nothing back: the summed logs stay on the device;
-  - bumps the autograd version of what the replays wrote, which a replay
-    does not, so caches keyed on it see the new weights.
+  - bumps, after each replay, the autograd version of what it wrote, and
+    counts what the captured step counted (``cuda_graphs.Graph.replay``),
+    so caches keyed on the versions see the new weights.
 
 So the host does O(1) work a step. The draw index of step s comes from the
 global step (``device_sampler.draw_index``, the rule of JAX's
 ``_step_key``), so block(k) draws what k blocks of 1 and a resumed run
-draw. Both graphs share one memory pool, so the activations are held once.
+draw. The graphs share one memory pool, so the activations are held once.
 
-Capture needs eager warm-up iterations; they run on a side stream and the
-state they touch (params, moments, count, step, slot, log sums) is copied
-back afterwards, so capture leaves the trainer as it was. On CUDA a failed
-capture or replay raises; nothing runs eagerly in the graphs' place. On the
-CPU there are no graphs, and the same step function runs eagerly.
+Capture goes through the trainer's ``cuda_graphs.Capturer``, the one its
+per-step graphs use: at a mode's first replay, one eager warm-up step on a
+side stream whose writes (params, moments, count, step, slot, log sums) are
+undone, so capture leaves the trainer as it was. On CUDA a failed capture or
+replay raises; nothing runs eagerly in the graphs' place. On the CPU there
+are no graphs, and the same step function runs eagerly.
 
 The caller clips k so that a block never crosses the warm-up decay
-(``max_block``); the decay after a block sets the device lr and zeroes the
-moments and count in place (``Trainer.decay_if_due``), so the graphs keep
-updating the live state.
+(``Trainer.max_block``); the decay after a block sets the device lr and
+zeroes the moments and count in place (``Trainer.decay_if_due``), so the
+graphs keep updating the live state.
 
 ``FusedMeshTrainer`` runs the same blocks on a 1-D mesh (JAX
 ``fused_train.py:300-489``): each rank draws its rows of the global batch
@@ -54,7 +56,7 @@ from .parallel.shard_map_step import shardmap_train_step
 from .parallel.sharding import ShardedTrainer, is_model_sharded
 from .sampler.device_sampler import DeviceSampler, draw_index
 from .sampler.negative import HEAD_BATCH, TAIL_BATCH
-from .train import Trainer, train_step, writes_undone
+from .train import Trainer, train_step
 
 # fixed log-key order of the summed log vector a block returns
 _LOG_KEYS = ("loss", "negative_sample_loss", "positive_sample_loss")
@@ -76,12 +78,8 @@ class FusedDeviceTrainer(Trainer):
 
     ``block_capacity`` sizes the static index buffer (a larger block grows
     it and recaptures). ``record_batches`` keeps each block's drawn batches
-    on the device (``recorded``) for comparisons. ``graph_replays`` counts
-    graph replays across all instances, ``graph_captures`` the captures (two
-    graphs each, one a mode)."""
-
-    graph_replays = 0
-    graph_captures = 0
+    on the device (``recorded``) for comparisons. Its graphs are tallied as
+    ``cuda_graphs`` kind "block"."""
 
     def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
                  warm_up_steps: int, train: np.ndarray, seed: int = 0, init_step: int = 0,
@@ -118,10 +116,7 @@ class FusedDeviceTrainer(Trainer):
         self._slot = torch.zeros(1, dtype=torch.int64, device=self.device)
         self._log_sum = torch.zeros(len(self._keys), dtype=p.dtype, device=self.device)
         self._record = record_batches
-        self._graphs: Dict[str, "torch.cuda.CUDAGraph"] = {}
-        self._captured_on: Tuple[torch.Tensor, ...] = ()
         self._block0 = None  # (first step, k) of the last block
-        self._side = None  # the warm-up and capture stream
         self._grow(block_capacity)
 
     def _grow(self, capacity: int) -> None:
@@ -156,61 +151,19 @@ class FusedDeviceTrainer(Trainer):
 
     def _state(self) -> List[torch.Tensor]:
         """Every tensor a step writes, bar the recorded batches."""
-        st = self.opt_state
-        return [*self.params.values(), *st.m.values(), *st.v.values(), st.steps,
-                self._step_t, self._slot, self._log_sum]
-
-    def _mark_written(self) -> None:
-        """Bump the autograd version of every tensor a step writes. A graph
-        replay writes them without passing through the dispatcher, so their
-        ``_version`` would not move, and a cache keyed on it
-        (``rank_kernel.get_ranker``, whose pRotatE ranker holds a sin | cos
-        table of the weights) would go on serving the weights of before the
-        block. The eager steps of the CPU bump it themselves."""
-        for t in self._state():
-            torch.autograd.graph.increment_version(t)
+        return [*self._written(), self._step_t, self._slot, self._log_sum]
 
     def _graph_inputs(self) -> Tuple[torch.Tensor, ...]:
-        """The tensors the graphs were captured on: a restore that replaces
-        any of them (``checkpoint.restore_trainer``) calls for a new capture."""
         return (*self._state(), self.lr_tensor, self._idx, *(self._rec if self._record else ()))
 
-    def _capture(self) -> None:
-        """One CUDA graph per mode, in one memory pool, after one eager
-        warm-up step per mode whose writes are undone; warm-up and capture
-        run on one side stream, kept for the trainer's life."""
-        cur = torch.cuda.current_stream(self.device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        side = self._side
-        side.wait_stream(cur)
-        with torch.cuda.stream(side), writes_undone(self._state()):
-            for mode in (TAIL_BATCH, HEAD_BATCH):
-                self._slot.zero_()
-                self._step(mode)
-        cur.wait_stream(side)
-        pool = torch.cuda.graph_pool_handle()
-        graphs = {}
-        for mode in (TAIL_BATCH, HEAD_BATCH):
-            g = torch.cuda.CUDAGraph()
-            with torch.cuda.graph(g, pool=pool, stream=side):
-                self._step(mode)
-            graphs[mode] = g
-        self._graphs = graphs
-        self._captured_on = self._graph_inputs()
-        FusedDeviceTrainer.graph_captures += 1
-
-    def _graphs_current(self) -> bool:
-        """Whether graphs were captured on the tensors the trainer holds now."""
-        now = self._graph_inputs()
-        return (len(now) == len(self._captured_on)
-                and all(a is b for a, b in zip(now, self._captured_on)))
-
-    def max_block(self, k: int) -> int:
-        """Largest block from the current step that keeps lr constant: the
-        decay fires after step_idx >= warm_up_steps, so the boundary step
-        itself may close a block but not be crossed."""
-        return max(1, min(k, self.warm_up_steps + 1 - self.step))
+    def _block_graph(self, mode: str):
+        """The graph of one fused step of ``mode``, captured at its first use."""
+        graphs = self._live_graphs()
+        key = ("block", mode)
+        if key not in graphs:
+            graphs[key] = self._capturer.capture("block", lambda: self._step(mode),
+                                                 written=self._state())
+        return graphs[key]
 
     def run_block(self, k: int) -> Dict[str, torch.Tensor]:
         """Advance k fused steps; returns the SUMMED logs as 0-d device
@@ -227,8 +180,6 @@ class FusedDeviceTrainer(Trainer):
         if k > len(self._idx):
             self._grow(k)
         cuda = self.device.type == "cuda"
-        if cuda and not self._graphs_current():
-            self._capture()
         host = torch.from_numpy(idx)
         if cuda:  # the caching host allocator keeps the pinned block until the copy is done
             self._idx[:k].copy_(host.pin_memory(), non_blocking=True)
@@ -240,11 +191,9 @@ class FusedDeviceTrainer(Trainer):
         for i in range(k):
             mode = step_mode(step0 + i)
             if cuda:
-                self._graphs[mode].replay()
-                FusedDeviceTrainer.graph_replays += 1
+                self._block_graph(mode).replay()
             else:
                 self._step(mode)
-        self._mark_written()
         self.step = step0 + k
         self._block0 = (step0, k)
         self.decay_if_due(self.step - 1)

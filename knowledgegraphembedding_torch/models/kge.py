@@ -52,6 +52,12 @@ def params_from_numpy(arrays: Mapping[str, np.ndarray], device) -> Params:
     return {k: torch.from_numpy(np.array(v)).to(device) for k, v in arrays.items()}
 
 
+def trainable(params: Mapping[str, torch.Tensor]) -> Params:
+    """Copies of ``params`` as leaf tensors that require grad: a trainer
+    owns and updates its own tables, and the caller's stay as they were."""
+    return {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
+
+
 def forward(params: Params, spec: ModelSpec, sample,
             mode: str = scorers.SINGLE,
             compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:

@@ -513,7 +513,7 @@ class Ranker:
 # evaluates the same weights more than once (valid, then test). Keep the last
 # two rankers, keyed on each parameter's identity and version: training
 # updates the tables in place, which bumps ``_version`` (a CUDA graph replay
-# does not; ``FusedDeviceTrainer.run_block`` bumps it after its replays, and
+# does not; ``cuda_graphs.Graph.replay`` bumps it after each replay, and
 # any other write that bypasses the dispatcher must too), so a ranker (and
 # pRotatE's sin/cos table) built from older weights is never used again. An
 # entry whose tables have moved is dropped at the next lookup; each entry

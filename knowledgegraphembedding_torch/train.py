@@ -8,12 +8,12 @@ does, and dense Adam in place. The learning rate is a runtime value held in a
 0-d tensor on the params' device, and the one-shot decay (÷10 at
 warm_up_steps, a fresh Adam, warm_up×3) happens in ``Trainer.one_step``,
 setting that tensor and zeroing the Adam state in place, so captured CUDA
-graphs (``StepGraphs`` here, the fused trainer's in ``fused_train.py``) see
-the live values. Logs stay on the device; nothing in a step reads a device
-value on the host.
+graphs (the per-step ones here, the fused trainer's in ``fused_train.py``)
+see the live values. Logs stay on the device; nothing in a step reads a
+device value on the host.
 
 On a CUDA device ``Trainer.one_step`` replays ``train_step`` from a CUDA
-graph captured for the batch's corruption mode (``StepGraphs``): the same
+graph captured for the batch's corruption mode (``cuda_graphs``): the same
 kernels in the same order, without the host's launches and autograd work of
 an eager step. On the CPU the step runs eagerly.
 
@@ -31,14 +31,13 @@ gathered row from the table); every other case runs the chain of
 
 from __future__ import annotations
 
-import contextlib
 import logging
-from typing import Dict, List, Mapping, NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from . import optim
+from . import cuda_graphs, optim
 from .config import ModelSpec, TrainSpec
 from .models import kge, scorers
 from .ops import loss as loss_ops
@@ -127,137 +126,10 @@ def train_step(params: kge.Params, opt_state: optim.AdamState, pos, neg, weight,
     return {k: v.detach() for k, v in logs.items()}
 
 
-def trainable(params: Mapping[str, torch.Tensor]) -> kge.Params:
-    """Copies of ``params`` as leaf tensors that require grad: the trainer
-    owns and updates its own tables, and the caller's stay as they were."""
-    return {k: v.detach().clone().requires_grad_(True) for k, v in params.items()}
-
-
-@contextlib.contextmanager
-def writes_undone(tensors: List[torch.Tensor]):
-    """Run the block, then put ``tensors`` back as they were before it (on
-    the current stream): a graph capture's eager warm-up step leaves the
-    state it trained as it found it."""
-    saved = [t.detach().clone() for t in tensors]
-    yield
-    with torch.no_grad():
-        for t, s in zip(tensors, saved):
-            t.copy_(s)
-
-
-class _ModeGraph(NamedTuple):
+class _StepGraph(NamedTuple):
     key: tuple  # the batch's shapes and dtypes
-    graph: "torch.cuda.CUDAGraph"
+    graph: cuda_graphs.Graph  # its output: the captured step's logs
     inputs: Tuple[torch.Tensor, torch.Tensor, torch.Tensor]  # static pos, neg, weight
-    logs: Dict[str, torch.Tensor]  # the captured step's outputs
-    counts: List[Tuple[str, int]]  # what the captured step counted
-
-
-class StepGraphs:
-    """The CUDA graphs that serve a ``Trainer``'s steps on a CUDA device: one
-    ``train_step`` for each corruption mode, captured in one memory pool on
-    the first step of that mode, reading static ``pos``, ``neg`` and
-    ``weight`` buffers.
-
-    A step copies its batch into the mode's buffers on the current stream
-    (so the wait on the prefetch upload's event still orders it), replays
-    the graph there, bumps the autograd version of every tensor the step
-    writes (a replay bypasses the dispatcher, and ``rank_kernel.get_ranker``
-    keys its cache on the versions), counts again what the captured step
-    counted (a replay runs no Python) and returns clones of the captured
-    logs, which the next replay overwrites. The lr and the Adam state are
-    set in place between steps (``Trainer.decay_if_due``), so the graphs see
-    the live values.
-
-    A mode is captured again when its batch's shapes or dtypes change, and
-    every mode when the trainer's tensors are replaced
-    (``checkpoint.restore_trainer``). Before a capture, one eager warm-up
-    step runs on the side stream and its writes are undone, as in
-    ``FusedDeviceTrainer._capture``; an async checkpoint still being written
-    is waited for first. A failed capture or replay raises; nothing runs
-    eagerly in a graph's place. The trainer is passed to each call, not
-    held: a reference cycle would leave the graphs to the cyclic garbage
-    collector, which may free them while another graph is being captured,
-    and that invalidates the capture. ``captures`` and ``replays`` count
-    over all instances."""
-
-    captures = 0
-    replays = 0
-
-    def __init__(self):
-        self._graphs: Dict[str, _ModeGraph] = {}
-        self._captured_on: Tuple[torch.Tensor, ...] = ()
-        self._pool = None
-        self._side = None  # the warm-up and capture stream
-
-    @staticmethod
-    def _written(tr: "Trainer") -> List[torch.Tensor]:
-        """Every tensor a step writes."""
-        st = tr.opt_state
-        return [*tr.params.values(), *st.m.values(), *st.v.values(), st.steps]
-
-    def _current(self, tr: "Trainer") -> bool:
-        """Whether the graphs were captured on the tensors the trainer holds now."""
-        now = (*self._written(tr), tr.lr_tensor)
-        return (len(now) == len(self._captured_on)
-                and all(a is b for a, b in zip(now, self._captured_on)))
-
-    @staticmethod
-    def _body(tr: "Trainer", inputs, mode: str) -> Dict[str, torch.Tensor]:
-        pos, neg, weight = inputs
-        return train_step(tr.params, tr.opt_state, pos, neg, weight, tr.lr_tensor,
-                          spec=tr.spec, tspec=tr.tspec, mode=mode)
-
-    def _capture(self, tr: "Trainer", key: tuple, batch, mode: str) -> _ModeGraph:
-        from .checkpoint import wait_for_pending_save
-
-        wait_for_pending_save()  # the writer's copies must not run beside a capture
-        device = batch[0].device
-        if not self._current(tr):
-            torch.cuda.synchronize(device)  # no replay of the old graphs in flight
-            self._graphs = {}
-            self._pool = torch.cuda.graph_pool_handle()
-            self._captured_on = (*self._written(tr), tr.lr_tensor)
-        if self._side is None:
-            self._side = torch.cuda.Stream(device)
-        side, cur = self._side, torch.cuda.current_stream(device)
-        inputs = tuple(x.clone() for x in batch)
-        side.wait_stream(cur)
-        with (torch.cuda.stream(side), profiling.diverted_counts(),
-              writes_undone(self._written(tr))):
-            self._body(tr, inputs, mode)
-        cur.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        # thread_local: the prefetch worker and an async checkpoint's writer
-        # may be copying on their own streams meanwhile
-        with profiling.diverted_counts() as counts, torch.cuda.graph(
-                graph, pool=self._pool, stream=side, capture_error_mode="thread_local"):
-            logs = self._body(tr, inputs, mode)
-        cur.wait_stream(side)
-        StepGraphs.captures += 1
-        profiling.count("train_step.captured")
-        return _ModeGraph(key, graph, inputs, logs, counts)
-
-    def step(self, tr: "Trainer", pos: torch.Tensor, neg: torch.Tensor,
-             weight: torch.Tensor, mode: str) -> Dict[str, torch.Tensor]:
-        """One ``train_step`` of ``tr`` on the batch, from the mode's graph;
-        the logs."""
-        key = tuple((tuple(t.shape), t.dtype) for t in (pos, neg, weight))
-        entry = self._graphs.get(mode) if self._current(tr) else None
-        if entry is None or entry.key != key:
-            entry = self._capture(tr, key, (pos, neg, weight), mode)
-            self._graphs[mode] = entry
-        else:
-            for buf, x in zip(entry.inputs, (pos, neg, weight)):
-                buf.copy_(x)
-        entry.graph.replay()
-        for t in self._written(tr):
-            torch.autograd.graph.increment_version(t)
-        for name, n in entry.counts:
-            profiling.count(name, n)
-        StepGraphs.replays += 1
-        profiling.count("train_step.replayed")
-        return {k: v.clone() for k, v in entry.logs.items()}
 
 
 class Trainer:
@@ -268,18 +140,20 @@ class Trainer:
     # checkpoint.save_model may snapshot the state on the device and write
     # it from a background thread
     supports_async_checkpoint = True
+    # the capturer of the trainer's CUDA graphs, made at its first graph;
+    # ``_graphs`` holds them by key from then on (``_live_graphs``)
+    _capturer: Optional[cuda_graphs.Capturer] = None
 
     def __init__(self, spec: ModelSpec, tspec: TrainSpec, params, lr: float,
                  warm_up_steps: int, init_step: int = 0):
         self.dense = use_dense_scoring(spec, tspec)  # raises for dense on a non-bilinear model
         self.spec = spec
         self.tspec = tspec
-        self.params = trainable(params)
+        self.params = kge.trainable(params)
         self.opt_state = optim.init_state(self.params)
         self.current_learning_rate = lr
         self.warm_up_steps = warm_up_steps
         self.step = init_step
-        self._step_graphs = None  # StepGraphs, made at the first step on CUDA
 
     @property
     def current_learning_rate(self) -> float:
@@ -313,15 +187,13 @@ class Trainer:
 
     def one_step(self, batch) -> Dict[str, torch.Tensor]:
         """One step of ``batch`` (pos, neg, weight, mode): replayed from the
-        mode's CUDA graph on a CUDA device (``StepGraphs``), eager on the
-        CPU; then the decay if due. Returns the step's logs."""
+        mode's CUDA graph on a CUDA device (``_step_from_graph``), eager on
+        the CPU; then the decay if due. Returns the step's logs."""
         pos, neg, weight, mode = batch
         with profiling.span("train_step"):
             step_idx = self.step
             if self.params["entity_embedding"].is_cuda:
-                if self._step_graphs is None:
-                    self._step_graphs = StepGraphs()
-                logs = self._step_graphs.step(self, pos, neg, weight, mode)
+                logs = self._step_from_graph(pos, neg, weight, mode)
             else:
                 profiling.count("train_step.eager")
                 logs = train_step(self.params, self.opt_state, pos, neg, weight,
@@ -329,6 +201,59 @@ class Trainer:
             self.step = step_idx + 1
             self.decay_if_due(step_idx)
         return logs
+
+    def _written(self) -> List[torch.Tensor]:
+        """Every tensor a step writes."""
+        st = self.opt_state
+        return [*self.params.values(), *st.m.values(), *st.v.values(), st.steps]
+
+    def _graph_inputs(self) -> Tuple[torch.Tensor, ...]:
+        """The tensors the trainer's graphs are captured on."""
+        return (*self._written(), self.lr_tensor)
+
+    def _live_graphs(self) -> dict:
+        """The trainer's graphs by key, in one pool; none once the trainer
+        holds other tensors than they were captured on
+        (``checkpoint.restore_trainer`` replaces them)."""
+        if self._capturer is None:
+            self._capturer = cuda_graphs.Capturer(self.params["entity_embedding"].device)
+        if self._capturer.stale(self._graph_inputs()):
+            self._graphs: dict = {}
+        return self._graphs
+
+    def _step_from_graph(self, pos, neg, weight, mode: str) -> Dict[str, torch.Tensor]:
+        """``train_step`` on the batch, replayed from the mode's graph, which
+        reads static ``pos``, ``neg`` and ``weight`` buffers. The graph is
+        captured at the mode's first step and again when the batch's shapes
+        or dtypes change; later steps copy their batch into its buffers on
+        the current stream, so the wait on the prefetch upload's event still
+        orders the copy. The lr and the Adam state are set in place between
+        steps (``decay_if_due``), so the graphs see the live values. The logs
+        returned are clones: the next replay overwrites the graph's."""
+        key = tuple((tuple(t.shape), t.dtype) for t in (pos, neg, weight))
+        graphs = self._live_graphs()
+        entry = graphs.get(("step", mode))
+        if entry is None or entry.key != key:
+            inputs = tuple(x.clone() for x in (pos, neg, weight))
+            graph = self._capturer.capture(
+                "step", lambda: train_step(self.params, self.opt_state, *inputs, self.lr_tensor,
+                                           spec=self.spec, tspec=self.tspec, mode=mode),
+                written=self._written())
+            profiling.count("train_step.captured")
+            entry = graphs["step", mode] = _StepGraph(key, graph, inputs)
+        else:
+            for buf, x in zip(entry.inputs, (pos, neg, weight)):
+                buf.copy_(x)
+        logs = entry.graph.replay()
+        profiling.count("train_step.replayed")
+        return {k: v.clone() for k, v in logs.items()}
+
+    def max_block(self, k: int) -> int:
+        """Largest advance of at most k steps from the current step that
+        keeps lr constant: the decay fires after step_idx >= warm_up_steps,
+        so the boundary step itself may close an advance but not be
+        crossed."""
+        return max(1, min(k, self.warm_up_steps + 1 - self.step))
 
     def decay_if_due(self, step_idx: int) -> None:
         """codes/run.py ≈L300: checked after step ``step_idx``, so the step

@@ -25,6 +25,7 @@ import pytest
 
 import jax.numpy as jnp
 
+from knowledgegraphembedding_torch import cuda_graphs
 from knowledgegraphembedding_torch import eval as t_eval
 from knowledgegraphembedding_torch.config import ModelSpec as TSpec
 from knowledgegraphembedding_torch.data.filterset import FilterSets as TFilterSets
@@ -206,10 +207,10 @@ def test_per_batch_loop_equals_the_scan():
 def test_chunk_runner_runs_the_body_off_cuda():
     """Off CUDA the chunk runner is the body itself: no graph, no capture."""
     body = lambda chunk: chunk.sum()  # noqa: E731
-    before = t_eval._ChunkGraph.captures
+    before = cuda_graphs.captures["eval_chunk"]
     graphs = {}
     assert t_eval.chunk_runner(graphs, "k", body, body, on_cuda=False) is body
-    assert graphs == {} and t_eval._ChunkGraph.captures == before
+    assert graphs == {} and cuda_graphs.captures["eval_chunk"] == before
 
 
 def test_plain_graph_cache_follows_the_params_versions():

@@ -10,6 +10,7 @@ per-step device flows log their windows and decay at the JAX CLI's steps."""
 import contextlib
 import os
 import re
+import types
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ import jax.numpy as jnp
 
 from knowledgegraphembedding_torch import checkpoint as t_ckpt
 from knowledgegraphembedding_torch import cli as t_cli
+from knowledgegraphembedding_torch import cuda_graphs
 from knowledgegraphembedding_torch import eval as t_eval
 from knowledgegraphembedding_torch.config import ModelSpec as TSpec
 from knowledgegraphembedding_torch.config import TrainSpec as TTrainSpec
@@ -99,12 +101,22 @@ def test_block_equals_singles_bit_for_bit(kg, start, sharing):
         assert torch.equal(logs_a[k], sums[k]), k
 
 
+class _StandInCapturer(cuda_graphs.Capturer):
+    """Captures nothing: each "graph" replays its body eagerly, so the
+    replay path of ``cuda_graphs.Graph`` runs on the CPU."""
+
+    def capture(self, kind, body, *, written=(), warm=None):
+        return cuda_graphs.Graph(kind, types.SimpleNamespace(replay=body), None, [], written)
+
+
 def test_run_block_bumps_versions_for_the_ranker_cache(kg, monkeypatch):
     """A CUDA graph replay writes the params without moving their autograd
-    version. Here the step is replaced by a write through ``.data``, which
-    leaves the version alone as a replay does. Without run_block's hook the
-    ranker cache serves the pRotatE sin | cos table of before the block;
-    with it, a fresh table equal to a new Ranker's."""
+    version. Here the block's graphs (``_block_graph``) are replayed by a
+    stand-in for the card, and the step is a write through ``.data``, which
+    leaves the version alone as a replay does. With the replay's version
+    bump (``cuda_graphs.bump_versions``) switched off, the ranker cache
+    serves the pRotatE sin | cos table of before the block; with it on, a
+    fresh table equal to a new Ranker's."""
     from knowledgegraphembedding_torch.ops import rank_kernel
 
     spec = TSpec(nentity=kg.nentity, nrelation=kg.nrelation, model_name="pRotatE",
@@ -113,16 +125,19 @@ def test_run_block_bumps_versions_for_the_ranker_cache(kg, monkeypatch):
     tr = FusedDeviceTrainer(spec, TTrainSpec(**TSPEC), params, lr=1e-2, warm_up_steps=10**9,
                             train=kg.train, seed=3)
     monkeypatch.setattr(tr, "_step", lambda mode: tr.params["entity_embedding"].data.add_(0.25))
+    tr._capturer = _StandInCapturer("cpu")
     stale = rank_kernel.get_ranker(tr.params, spec)
     table = stale.table.clone()
     version = tr.params["entity_embedding"]._version
     with monkeypatch.context() as m:
-        m.setattr(tr, "_mark_written", lambda: None)
-        tr.run_block(2)
+        m.setattr(cuda_graphs, "bump_versions", lambda tensors: None)
+        for mode in ("tail-batch", "head-batch"):
+            tr._block_graph(mode).replay()
     assert tr.params["entity_embedding"]._version == version
-    assert rank_kernel.get_ranker(tr.params, spec) is stale  # the fault, without the hook
+    assert rank_kernel.get_ranker(tr.params, spec) is stale  # the fault, without the bump
     assert torch.equal(stale.table, table)
-    tr.run_block(2)
+    for mode in ("tail-batch", "head-batch"):
+        tr._block_graph(mode).replay()
     assert tr.params["entity_embedding"]._version > version
     fresh = rank_kernel.get_ranker(tr.params, spec)
     assert fresh is not stale

@@ -285,7 +285,7 @@ def test_diverted_counts_collect_a_blocks_counts_off_the_store(recorder, profile
 def test_cpu_steps_run_eagerly_and_capture_nothing(recorder, model):
     """On the CPU every ``Trainer.one_step`` runs ``train_step`` eagerly and
     counts ``train_step.eager``; no graph is made or counted."""
-    from knowledgegraphembedding_torch.train import StepGraphs
+    from knowledgegraphembedding_torch import cuda_graphs
 
     ds, _, tspec, _, _ = _tiny_program()
     spec = ModelSpec(model_name=model, nentity=ds.nentity, nrelation=ds.nrelation,
@@ -294,7 +294,7 @@ def test_cpu_steps_run_eagerly_and_capture_nothing(recorder, model):
     trainer = Trainer(spec, tspec, params, lr=0.01, warm_up_steps=1)
     it = t_neg.build_train_iterator(ds.train, ds.nentity, ds.nrelation, 8, 4, seed=0,
                                     prefetch_depth=0, backend="numpy")
-    captures, replays = StepGraphs.captures, StepGraphs.replays
+    tallies = (cuda_graphs.captures["step"], cuda_graphs.replays["step"])
     with cpu_profile():
         for _ in range(4):
             pos, neg, w, mode = next(it)
@@ -305,8 +305,8 @@ def test_cpu_steps_run_eagerly_and_capture_nothing(recorder, model):
         counts[c.name] += c.n
     assert counts["train_step.eager"] == 4
     assert not counts["train_step.replayed"] and not counts["train_step.captured"]
-    assert trainer._step_graphs is None
-    assert (StepGraphs.captures, StepGraphs.replays) == (captures, replays)
+    assert trainer._capturer is None
+    assert (cuda_graphs.captures["step"], cuda_graphs.replays["step"]) == tallies
 
 
 def _splitmix64(x):
